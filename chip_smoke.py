@@ -6,12 +6,20 @@ Phases (any failure exits non-zero before the result line):
   1. torch version, device name, card name and power limit (nvidia-smi);
   2. build the CUDA kernel(s) from ``orbslam2_with_quadrics_tpu_torch/csrc``;
   3. each kernel against its plain PyTorch version on the card, bit-exact,
-     at the main path's shapes plus tie / all-masked / ragged cases, with
-     median CUDA-event times of both;
+     at the main path's shapes (single and batched) plus tie / all-masked /
+     ragged cases, and at those shapes four times of it:
+       kernel_ms  device time of the kernel alone (20 launches captured in a
+                  CUDA graph, the replay timed between two events, / 20);
+       call_ms    what a caller pays per call on an idle card, the Python
+                  wrapper included (events around one call);
+       plain_ms   the plain PyTorch version, timed like call_ms;
+       bound_ms   the least time the card could take for this run's inputs
+                  (see ``bound_ms``);
   4. the port's monocular main path, ``System.track_monocular``, at full
      width (640x480, 1024 features, 8 levels, default map pools, every map
      tensor on the card) over a 60-frame synthetic sequence, checked against
-     ground truth, with kernel launch counts from that run.
+     ground truth, with kernel launch counts from that run (at most 2 per
+     tracked frame and 2 per mapping pass).
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -52,67 +60,198 @@ def cuda_median_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def hamming_case(Q, N, seed, ties=False, masked=False, dev="cuda"):
-    """Inputs of masked_hamming_best2 at (Q, N) drawn from ``seed``."""
+def graph_kernel_ms(fn, launches: int = 20, reps: int = 20) -> float:
+    """Device time of one launch made by ``fn``: ``launches`` calls captured
+    in a CUDA graph on a side stream, the replay timed between two events."""
+    fn()  # build and allocator warm-up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=torch.cuda.Stream()):
+        for _ in range(launches):
+            fn()
+    return cuda_median_ms(graph.replay, reps=reps) / launches
+
+
+def profiler_kernel_ms(fn, name: str, launches: int = 20):
+    """Mean device time of the kernels whose name contains ``name`` over
+    ``launches`` calls of ``fn``, from torch.profiler (None if it saw none)."""
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA and name in e.name]
+    return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / len(ev) if ev else None
+
+
+# NVIDIA H100 SXM data sheet: 3.35 TB/s of HBM; 67 TFLOP/s of fp32 outside
+# the tensor cores counts an FMA as two, so an add or a compare runs at
+# half of it, and gives the boost clock 67e12 / (132 SMs * 128 lanes * 2).
+# POPC: 16 results per clock per SM (NVIDIA's table of arithmetic
+# throughput per compute capability, column 9.0).
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12 / 2
+POPC_PER_S = 16 * 132 * (67e12 / (132 * 128 * 2))
+
+
+def bound_ms(args, level_tol: int = 1):
+    """The least time the card could take for masked_hamming_best2 on these
+    inputs: the largest of (a) every input byte read once and every output
+    byte written once over the memory rate, (b) the window test, 2
+    subtractions and 2 compares for every (valid query, valid target) pair,
+    over the fp32 rate, (c) 8 POPC for every pair that this run's data
+    admits over the POPC rate. Returns (bound, bound with every pair
+    admitted, what bounds it) in ms."""
+    qdesc, quv, qrad, qlvl, qvalid, tdesc, tuv, tlvl, tvalid = args
+    rows, n = qrad.numel(), tdesc.shape[-2]
+    nbytes = sum(t.numel() * t.element_size() for t in args) + 3 * 4 * rows
+    tv = tvalid if tvalid.dim() == qvalid.dim() else tvalid.expand(qvalid.shape[:-1] + (n,))
+    tested = int((qvalid.sum(-1) * tv.sum(-1)).sum())
+    tu = tuv if tuv.dim() == quv.dim() else tuv.expand(quv.shape[:-2] + tuv.shape)
+    tl = tlvl if tlvl.dim() == qlvl.dim() else tlvl.expand(qlvl.shape[:-1] + (n,))
+    admitted = int((
+        (torch.abs(quv[..., :, None, 0] - tu[..., None, :, 0]) <= qrad[..., None])
+        & (torch.abs(quv[..., :, None, 1] - tu[..., None, :, 1]) <= qrad[..., None])
+        & (torch.abs(tl[..., None, :] - qlvl[..., None]) <= level_tol)
+        & qvalid[..., None] & tv[..., None, :]).sum())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(4 * tested / FP32_OPS_PER_S, 8 * admitted / POPC_PER_S) * 1e3
+    all_admitted = max(t_bytes, 8 * rows * n / POPC_PER_S * 1e3)
+    return max(t_bytes, t_ops), all_admitted, "bytes" if t_bytes > t_ops else "operations"
+
+
+def hamming_case(Q, N, seed, ties=False, masked=False, dev="cuda", B=None,
+                 shared_targets=False, radius=15.0):
+    """Inputs of masked_hamming_best2 at (Q, N) drawn from ``seed``; with
+    ``B`` a batch of B problems, their targets per entry or one shared set.
+    ``radius`` (level-0 px) is a number or one number per batch entry."""
     g = torch.Generator(device=dev).manual_seed(seed)
+    ql = () if B is None else (B,)
+    tl = () if B is None or shared_targets else (B,)
 
     def ri(lo, hi, shape):
         return torch.randint(lo, hi, shape, generator=g, device=dev, dtype=torch.int64)
 
     if ties:  # a few distinct descriptors: exact distance ties everywhere
         pool = ri(-2 ** 31, 2 ** 31, (4, 8)).to(torch.int32)
-        qdesc, tdesc = pool[ri(0, 4, (Q,))], pool[ri(0, 4, (N,))]
+        qdesc, tdesc = pool[ri(0, 4, ql + (Q,))], pool[ri(0, 4, tl + (N,))]
+        radius = 400.0
     else:
-        qdesc = ri(-2 ** 31, 2 ** 31, (Q, 8)).to(torch.int32)
-        tdesc = ri(-2 ** 31, 2 ** 31, (N, 8)).to(torch.int32)
+        qdesc = ri(-2 ** 31, 2 ** 31, ql + (Q, 8)).to(torch.int32)
+        tdesc = ri(-2 ** 31, 2 ** 31, tl + (N, 8)).to(torch.int32)
     scale = torch.tensor([640.0, 480.0], device=dev)
-    quv = torch.rand((Q, 2), generator=g, device=dev) * scale
-    tuv = torch.rand((N, 2), generator=g, device=dev) * scale
-    qlvl = ri(0, 8, (Q,)).to(torch.int32)
-    tlvl = ri(0, 8, (N,)).to(torch.int32)
+    quv = torch.rand(ql + (Q, 2), generator=g, device=dev) * scale
+    tuv = torch.rand(tl + (N, 2), generator=g, device=dev) * scale
+    qlvl = ri(0, 8, ql + (Q,)).to(torch.int32)
+    tlvl = ri(0, 8, tl + (N,)).to(torch.int32)
     sf = 1.2 ** qlvl.to(torch.float32)
-    qrad = (15.0 if not ties else 400.0) * sf
-    qvalid = torch.rand(Q, generator=g, device=dev) < (0.0 if masked else 0.9)
-    tvalid = torch.rand(N, generator=g, device=dev) < 0.9
-    return (qdesc.contiguous(), quv, qrad.contiguous(), qlvl, qvalid,
+    qrad = torch.as_tensor(radius, dtype=torch.float32, device=dev).reshape(-1, 1) * sf
+    qvalid = torch.rand(ql + (Q,), generator=g, device=dev) < (0.0 if masked else 0.9)
+    tvalid = torch.rand(tl + (N,), generator=g, device=dev) < 0.9
+    return (qdesc.contiguous(), quv, qrad.reshape(ql + (Q,)).contiguous(), qlvl, qvalid,
             tdesc.contiguous(), tuv, tlvl, tvalid)
 
 
-def phase_kernels():
+def stage_a_case(seed):
+    """The motion-model sweep: the same 1024 queries and targets under the
+    15 px and the 30 px window, as a batch of two."""
+    one = hamming_case(1024, 1024, seed)
+    q = [torch.stack([t, t]) for t in one[:5]]
+    q[2] = torch.stack([one[2], 2.0 * one[2]])
+    return tuple(q) + one[5:]
+
+
+def kernel_cases():
+    """[(name, inputs, timed)]: the cases held against the plain version;
+    the timed ones are the main path's shapes."""
+    return [
+        ("main-A 1024x1024", hamming_case(1024, 1024, 100), True),
+        ("main-B 4096x1024", hamming_case(4096, 1024, 101), True),
+        ("ties 1024x1024", hamming_case(1024, 1024, 102, ties=True), False),
+        ("all-masked 512x512", hamming_case(512, 512, 103, masked=True), False),
+        ("ragged 300x200", hamming_case(300, 200, 104), False),
+        ("ragged 1x1000", hamming_case(1, 1000, 105), False),
+        ("ragged 257x1", hamming_case(257, 1, 106), False),
+        ("stageA B=2 1024x1024", stage_a_case(107), True),
+        ("fuse-fwd B=10 1024x1024", hamming_case(1024, 1024, 108, B=10, radius=3.0), True),
+        ("fuse-rev B=10 1024x1024", hamming_case(1024, 1024, 109, B=10, radius=3.0,
+                                                 shared_targets=True), True),
+        # equal minima in different lanes, warps and (N > 1024) chunks
+        ("ties B=3 1024x2500", hamming_case(1024, 2500, 110, ties=True, B=3), False),
+        ("ragged B=3 300x200", hamming_case(300, 200, 111, B=3,
+                                            radius=[15.0, 3.0, 400.0]), False),
+    ]
+
+
+def max_abs_diff(got, ref) -> int:
+    return max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+               for a, b in zip(got, ref))
+
+
+def phase_kernels(smi):
     from orbslam2_with_quadrics_tpu_torch.ops import cuda_kernels as ck
 
     t0 = time.time()
     lib = ck.build()
-    ck._lib()
+    ck._launcher()
     log(f"[build] {lib.name} in {time.time() - t0:.2f} s")
-    cases = [
-        ("main-A 1024x1024", 1024, 1024, {}),
-        ("main-B 4096x1024", 4096, 1024, {}),
-        ("ties 1024x1024", 1024, 1024, {"ties": True}),
-        ("all-masked 512x512", 512, 512, {"masked": True}),
-        ("ragged 300x200", 300, 200, {}),
-        ("ragged 1x1000", 1, 1000, {}),
-        ("ragged 257x1", 257, 1, {}),
-    ]
+    for line in open(f"{lib}.ptxas.txt").read().splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[build] ptxas: {line.strip()}")
     max_err = 0
     times = {}
-    for i, (name, Q, N, kw) in enumerate(cases):
-        args = hamming_case(Q, N, seed=100 + i, **kw)
-        got = ck.masked_hamming_best2(*args)
-        ref = ck.masked_hamming_best2_plain(*args)
-        torch.cuda.synchronize()
-        err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) for a, b in zip(got, ref))
-        max_err = max(max_err, err)
-        n_adm = int((ref[1] < ck._BIG).sum())
-        log(f"[kernel] {name}: max |kernel - plain| = {err}, tolerance 0 "
-            f"(bit-exact; {n_adm}/{Q} rows with a candidate)")
-        if err != 0:
-            raise AssertionError(f"masked_hamming_best2 disagrees with its plain version on {name}")
-        if name.startswith("main"):
-            ms_k = cuda_median_ms(lambda: ck.masked_hamming_best2(*args))
-            ms_p = cuda_median_ms(lambda: ck.masked_hamming_best2_plain(*args), reps=10)
-            times[(Q, N)] = (ms_k, ms_p)
-            log(f"[kernel] {name}: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms (median)")
+    cases = kernel_cases()
+    for name, args, timed in cases:
+        variants = [(name, args)]
+        if args[2].dim() == 1:  # every unbatched case also as a batch of one
+            variants.append((name + " as B=1", tuple(t[None] for t in args)))
+        for vname, vargs in variants:
+            got = ck.masked_hamming_best2(*vargs)
+            ref = ck.masked_hamming_best2_plain(*vargs)
+            torch.cuda.synchronize()
+            err = max_abs_diff(got, ref)
+            max_err = max(max_err, err)
+            n_adm = int((ref[1] < ck._BIG).sum())
+            log(f"[kernel] {vname}: max |kernel - plain| = {err}, tolerance 0 "
+                f"(bit-exact; {n_adm}/{ref[1].numel()} rows with a candidate)")
+            if err != 0:
+                raise AssertionError(
+                    f"masked_hamming_best2 disagrees with its plain version on {vname}")
+        if timed:
+            t = {"kernel_ms": graph_kernel_ms(lambda: ck.masked_hamming_best2(*args)),
+                 "call_ms": cuda_median_ms(lambda: ck.masked_hamming_best2(*args)),
+                 "plain_ms": cuda_median_ms(lambda: ck.masked_hamming_best2_plain(*args),
+                                            reps=10)}
+            t["bound_ms"], t["bound_all_admitted_ms"], t["bound_by"] = bound_ms(args)
+            times[name] = t
+            log(f"[kernel] {name}: kernel_ms {t['kernel_ms']:.5f} (graph replay of 20), "
+                f"call_ms {t['call_ms']:.5f} (wrapper + kernel), plain_ms {t['plain_ms']:.4f}, "
+                f"bound_ms {t['bound_ms']:.5f} by {t['bound_by']} (this run's inputs; "
+                f"{t['bound_all_admitted_ms']:.5f} with every pair admitted) ({smi})")
+    # every pair admitted: the kernel against the POPC bound
+    q = hamming_case(4096, 1024, 112)
+    wide = q[:2] + (torch.full_like(q[2], 1e4),) + q[3:4] + (torch.ones_like(q[4]),) \
+        + q[5:8] + (torch.ones_like(q[8]),)
+    if max_abs_diff(ck.masked_hamming_best2(*wide, level_tol=8),
+                    ck.masked_hamming_best2_plain(*wide, level_tol=8)) != 0:
+        raise AssertionError("masked_hamming_best2 disagrees with its plain version "
+                             "with every pair admitted")
+    k_all = graph_kernel_ms(lambda: ck.masked_hamming_best2(*wide, level_tol=8))
+    b_all = bound_ms(wide, level_tol=8)
+    log(f"[kernel] all-admitted 4096x1024: bit-exact, kernel_ms {k_all:.5f}, bound_ms "
+        f"{b_all[0]:.5f} by {b_all[2]} ({smi})")
+    # one query, one target: what a launch costs before any work is done
+    tiny = hamming_case(1, 1, 113)
+    log(f"[kernel] launch floor 1x1: kernel_ms "
+        f"{graph_kernel_ms(lambda: ck.masked_hamming_best2(*tiny)):.5f} ({smi})")
+    args_b = cases[1][1]
+    prof = profiler_kernel_ms(lambda: ck.masked_hamming_best2(*args_b), "masked_hamming_best2")
+    log(f"[kernel] main-B 4096x1024: torch.profiler by kernel name "
+        f"{'no device events' if prof is None else f'{prof:.5f} ms per launch'} ({smi})")
     return max_err, times
 
 
@@ -163,9 +302,15 @@ def run_main_path(device="cuda", h=480, w=640, n_features=1024, n_levels=8,
                                        fx, map_kw)
     cuda = device == "cuda"
     map_events = []
-    insert_and_map = sysm._insert_and_map
+    n_calls = {"frame_steps": 0, "map_passes": 0}
+    insert_and_map, frame_step = sysm._insert_and_map, sysm._frame_step
+
+    def counted_frame_step(*a, **k):
+        n_calls["frame_steps"] += 1
+        return frame_step(*a, **k)
 
     def timed_insert_and_map(*a, **k):  # device time of each mapping pass
+        n_calls["map_passes"] += 1
         if not cuda:
             return insert_and_map(*a, **k)
         ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
@@ -175,7 +320,7 @@ def run_main_path(device="cuda", h=480, w=640, n_features=1024, n_levels=8,
         map_events.append(ev)
         return out
 
-    sysm._insert_and_map = timed_insert_and_map
+    sysm._insert_and_map, sysm._frame_step = timed_insert_and_map, counted_frame_step
     try:
         slam = sysm.System(cfg)
         frame_ms = []
@@ -194,7 +339,7 @@ def run_main_path(device="cuda", h=480, w=640, n_features=1024, n_levels=8,
         traj = slam.full_trajectory()
         launches = dict(ck.LAUNCHES)
     finally:
-        sysm._insert_and_map = insert_and_map
+        sysm._insert_and_map, sysm._frame_step = insert_and_map, frame_step
     map_ms = [a.elapsed_time(b) for a, b in map_events]
 
     ate, span = trajectory_error(traj, poses)
@@ -205,7 +350,8 @@ def run_main_path(device="cuda", h=480, w=640, n_features=1024, n_levels=8,
         "n_pt": int(slam.map.n_pt), "ate": ate, "span": span,
         "frame_ms_median": float(np.median(frame_ms)) if frame_ms else float("nan"),
         "map_ms_median": float(np.median(map_ms)) if map_ms else float("nan"),
-        "n_map_passes": len(map_ms), "launches": launches,
+        "n_map_passes": n_calls["map_passes"], "n_frame_steps": n_calls["frame_steps"],
+        "launches": launches,
     }
     log(f"[main] {json.dumps(out)}")
     checks = [
@@ -215,8 +361,11 @@ def run_main_path(device="cuda", h=480, w=640, n_features=1024, n_levels=8,
         (ate < 0.05 * span, "ATE < 5% of span"),
     ]
     if cuda:
-        checks.append((launches["masked_hamming_best2"] > 0,
-                       "masked_hamming_best2 launched by the main path"))
+        n = launches["masked_hamming_best2"]
+        most = 2 * n_calls["frame_steps"] + 2 * n_calls["map_passes"]
+        checks.append((n > 0, "masked_hamming_best2 launched by the main path"))
+        checks.append((n <= most, f"at most 2 launches per tracked frame and 2 per mapping "
+                                  f"pass ({n} launches, limit {most})"))
     for ok, what in checks:
         if not ok:
             raise AssertionError(f"main path check failed: {what}")
@@ -237,16 +386,20 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
 
-    max_err, times = phase_kernels()
+    max_err, times = phase_kernels(smi)
     res = run_main_path()
-    ms_k, ms_p = times[(4096, 1024)]
+    n = res["launches"]["masked_hamming_best2"]
+    per_frame = (n - 2 * res["n_map_passes"]) / max(res["n_frame_steps"], 1)
     log(f"[main] median frame {res['frame_ms_median']:.2f} ms, median mapping pass "
-        f"{res['map_ms_median']:.2f} ms ({smi})")
+        f"{res['map_ms_median']:.2f} ms; {n} kernel launches over {res['n_frame_steps']} "
+        f"tracked frames and {res['n_map_passes']} mapping passes ({smi})")
+    t = times["main-B 4096x1024"]  # the headline shape: local-map tracking
     print(json.dumps({"kernels": [{
         "name": "masked_hamming_best2", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": res["launches"]["masked_hamming_best2"],
-        "max_abs_err": max_err, "ms": ms_k, "plain_ms": ms_p,
+        "replaces": KERNEL_REPLACES, "launches": n, "launches_per_frame": per_frame,
+        "max_abs_err": max_err, "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
+        "call_ms": t["call_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None, "shapes": times,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

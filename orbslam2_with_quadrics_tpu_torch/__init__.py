@@ -11,8 +11,10 @@ which it never imports). It mirrors the reference's layout:
                monocular ``System`` facade.
 - ``utils``  — numpy-only synthetic scenes and trajectory metrics.
 
-Tensors carry their device: a ``MapConfig(device="cuda")`` map runs every
-op on the card, and the one CUDA kernel is launched for CUDA tensors only.
+Tensors carry their device. ``MapConfig.device`` defaults to ``"cuda"``: the
+map and every op on it run on the card, and ``System`` raises where there is
+none; ``MapConfig(device="cpu")`` asks for the CPU, where the one CUDA
+kernel gives way to its plain version (it is launched for CUDA tensors only).
 """
 
 __version__ = "0.1.0"

@@ -165,27 +165,30 @@ def fuse_neighbors(m: ms.MapState, kf_id, Kc, height: int = 480, width: int = 64
     nb_w, nb_ids = topk_stable(W[kf_id], min(n_neighbors, K))
     nb_ok = nb_w > 0
     obs_cnt = ms.point_obs_count(m)
-    zeros_n = torch.zeros(N, device=dev)
     ar_n = torch.arange(N, device=dev)
     kf = kf_id.to(torch.int64)
 
     def project_into(pids, pid_ok, T_obs, into):
-        """Visible projections of points ``pids`` into keyframe ``into``
-        and their matches there (match_by_projection, radius 3, TH_LOW)."""
-        pc = lie.se3_apply(T_obs, m.pt_pos[pids])
+        """Visible projections of points ``pids`` [T,N] under poses
+        ``T_obs`` into keyframe(s) ``into`` and their matches there
+        (match_by_projection, radius 3, TH_LOW), every sweep in one batch:
+        ``T_obs`` [T,1,7] with ``into`` [T], or one pose [7] and one
+        keyframe shared by the batch. Reads only ``m``. Returns [T,N]."""
+        pos = m.pt_pos[pids]
+        pc = lie.se3_apply(T_obs, pos)
         uv_p, z = camera.project(Kc, pc)
         dist = torch.linalg.norm(pc, dim=-1)
         band = (dist >= m.pt_min_dist[pids]) & (dist <= m.pt_max_dist[pids])
-        vec = m.pt_pos[pids] - lie.camera_center(T_obs)[None, :]
+        vec = pos - lie.camera_center(T_obs)
         view = (torch.sum(vec * m.pt_normal[pids], dim=-1)
                 / torch.clamp(torch.linalg.norm(vec, dim=-1), min=1e-6)) > 0.5
         vis = (pid_ok & band & view & (z > 0.05)
-               & (uv_p[:, 0] >= 0) & (uv_p[:, 0] < width)
-               & (uv_p[:, 1] >= 0) & (uv_p[:, 1] < height))
+               & (uv_p[..., 0] >= 0) & (uv_p[..., 0] < width)
+               & (uv_p[..., 1] >= 0) & (uv_p[..., 1] < height))
         mi, _ = matching.match_by_projection(
             proj_uv=uv_p, proj_valid=vis,
             pred_level=predict_scale(dist, m.pt_max_dist[pids], scale, n_levels),
-            query_desc=m.pt_desc[pids], query_angle=zeros_n,
+            query_desc=m.pt_desc[pids], query_angle=None,
             feats_uv=m.kf_uv[into], feats_level=m.kf_level[into],
             feats_desc=m.kf_desc[into], feats_angle=m.kf_angle[into],
             feats_valid=m.kf_kp_valid[into], radius=3.0, scale_factors=sf,
@@ -216,19 +219,22 @@ def fuse_neighbors(m: ms.MapState, kf_id, Kc, height: int = 480, width: int = 64
         return remap, obs_flat
 
     src_pts = m.kf_obs_point[kf].to(torch.int64)
-    pid_src = torch.clamp(src_pts, 0, P - 1)
-    T1 = m.kf_pose[kf]
+    T = nb_ids.shape[0]
+    # the sweeps read only ``m``, never the fuse steps' carry, so all 2T of
+    # them are matched up front in two kernel launches:
+    # forward, the new keyframe's points into every neighbor ...
+    mi_fwd = project_into(torch.clamp(src_pts, 0, P - 1).expand(T, N),
+                          (src_pts >= 0) & nb_ok[:, None],
+                          m.kf_pose[nb_ids][:, None, :], nb_ids)
+    # ... and reverse, every neighbor's points into the new keyframe
+    src_nbs = m.kf_obs_point[nb_ids].to(torch.int64)
+    mi_rev = project_into(torch.clamp(src_nbs, 0, P - 1),
+                          (src_nbs >= 0) & nb_ok[:, None], m.kf_pose[kf], kf)
     remap = torch.arange(P, device=dev)
     obs_flat = m.kf_obs_point.reshape(-1)
-    for i in range(nb_ids.shape[0]):
-        nb = nb_ids[i]
-        # forward: the new keyframe's points into the neighbor
-        mi = project_into(pid_src, (src_pts >= 0) & nb_ok[i], m.kf_pose[nb], nb)
-        remap, obs_flat = fuse_step(remap, obs_flat, src_pts, nb, mi, True)
-        # reverse: the neighbor's points into the new keyframe
-        src_nb = m.kf_obs_point[nb].to(torch.int64)
-        mi = project_into(torch.clamp(src_nb, 0, P - 1), (src_nb >= 0) & nb_ok[i], T1, kf)
-        remap, obs_flat = fuse_step(remap, obs_flat, src_nb, kf, mi, False)
+    for i in range(T):
+        remap, obs_flat = fuse_step(remap, obs_flat, src_pts, nb_ids[i], mi_fwd[i], True)
+        remap, obs_flat = fuse_step(remap, obs_flat, src_nbs[i], kf, mi_rev[i], False)
 
     # resolve merge chains (a->b, b->c => a->c) by pointer jumping
     for _ in range(3):

@@ -10,7 +10,7 @@ int32 view of the reference's uint32 words.
 The functions are pure: they return a new ``MapState`` and leave their
 input untouched (tensors are copied before a row is written), so a
 snapshot held elsewhere never changes under its holder. The device is the
-one ``MapConfig.device`` names.
+one ``MapConfig.device`` names: the card unless the caller asks for the CPU.
 
 Where several writes may land on one slot, the reference's scatter keeps
 the last one (XLA applies updates in order); :func:`scatter_last` makes
@@ -37,7 +37,7 @@ class MapConfig:
     n_features: int = 1024      # keypoint capacity per keyframe
     n_levels: int = 8
     scale_factor: float = 1.2
-    device: str = "cpu"
+    device: str = "cuda"        # "cpu" only when asked for
 
 
 class MapState(NamedTuple):

@@ -97,6 +97,10 @@ class System:
                 raise NotImplementedError(_NOT_PORTED[flag])
         self.cfg = cfg
         self.device = torch.device(cfg.map.device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"System: MapConfig.device is {cfg.map.device!r} (the default) but no "
+                "CUDA card is available; pass MapConfig(device='cpu') to run on the CPU")
         fcfg = cfg.frontend
         self._K = fe.intrinsics(fcfg, str(self.device))[0]
         self._sf, _, self._inv_sigma2 = orb.scale_factors(

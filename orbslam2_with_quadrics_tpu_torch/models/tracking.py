@@ -1,9 +1,10 @@
 """Per-frame tracking: motion-model match -> pose opt -> local-map track.
 
 Counterpart of the reference's ``models/tracking.py`` (TrackWithMotionModel
-+ TrackLocalMap): two guided matching passes, each through the masked
-Hamming best-two kernel, and two pose optimizations, all on fixed-shape
-tensors with no host round trip.
++ TrackLocalMap): two projection-matching passes, each one launch of the masked
+Hamming best-two kernel (the motion-model pass is a batch of two windows),
+and two pose optimizations, all on fixed-shape tensors with no host round
+trip.
 """
 
 from __future__ import annotations
@@ -82,23 +83,24 @@ def track_frame(m: ms.MapState, feats, T_pred, prev_obs_point, Kc, bf,
                 & (uv_a[:, 1] >= 0) & (uv_a[:, 1] < height) & (z_a > 0.1))
     dist_a = torch.linalg.norm(pa - lie.camera_center(T_pred)[None, :], dim=-1)
     lvl_a = predict_scale(dist_a, m.pt_max_dist[qa_ids], scale, n_levels)
-    zeros_n = torch.zeros(N, device=dev)
+    # the motion window and its widened retry (the reference doubles the
+    # window when matches are scarce) are one batched sweep of two radii,
+    # one kernel launch; the choice between them stays on the device
+    radii = motion_radius * torch.arange(1, 3, dtype=torch.float32, device=dev)[:, None]
 
-    def match_a(radius):
-        return matching.match_by_projection(
-            proj_uv=uv_a, proj_valid=qa_ok & in_img_a, pred_level=lvl_a,
-            query_desc=m.pt_desc[qa_ids], query_angle=zeros_n,
-            feats_uv=feats.uv_und, feats_level=feats.level,
-            feats_desc=feats.desc, feats_angle=feats.angle,
-            feats_valid=feats.valid, radius=radius, scale_factors=sf,
-            th=matching.TH_HIGH,
-        )[0]
+    def both(t):
+        return t.expand((2,) + t.shape)
 
-    mi = match_a(motion_radius)
-    # widened retry when matches are scarce (the reference doubles the
-    # window and retries); both sweeps run so the choice stays on device
-    scarce = torch.sum((mi >= 0).to(torch.int32)) < 20
-    mi = torch.where(scarce, match_a(2.0 * motion_radius), mi)
+    mi2, _ = matching.match_by_projection(
+        proj_uv=both(uv_a), proj_valid=both(qa_ok & in_img_a), pred_level=both(lvl_a),
+        query_desc=both(m.pt_desc[qa_ids]), query_angle=None,
+        feats_uv=feats.uv_und, feats_level=feats.level,
+        feats_desc=feats.desc, feats_angle=feats.angle,
+        feats_valid=feats.valid, radius=radii, scale_factors=sf,
+        th=matching.TH_HIGH,
+    )
+    scarce = torch.sum((mi2[0] >= 0).to(torch.int32)) < 20
+    mi = torch.where(scarce, mi2[1], mi2[0])
     obs_a = torch.full((N + 1,), -1, dtype=torch.int64, device=dev)
     obs_a[torch.where(mi >= 0, mi, N)] = torch.where(mi >= 0, qa_ids, -1)
     obs_a = obs_a[:N]
@@ -128,7 +130,7 @@ def track_frame(m: ms.MapState, feats, T_pred, prev_obs_point, Kc, bf,
     lvl_b = predict_scale(dist_b, m.pt_max_dist[pid], scale, n_levels)
     mib, _ = matching.match_by_projection(
         proj_uv=uv_b, proj_valid=in_frustum, pred_level=lvl_b,
-        query_desc=m.pt_desc[pid], query_angle=torch.zeros_like(dist_b),
+        query_desc=m.pt_desc[pid], query_angle=None,
         feats_uv=feats.uv_und, feats_level=feats.level,
         feats_desc=feats.desc, feats_angle=feats.angle,
         feats_valid=feats.valid, radius=local_radius, scale_factors=sf,

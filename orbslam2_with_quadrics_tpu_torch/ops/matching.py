@@ -67,39 +67,59 @@ def best_two(dist, valid_mask):
     return best_idx[..., 0], best[..., 0], second
 
 
+def _batch_slots(lead, width: int, device):
+    """[*lead, 1] int64 offsets that give every batch entry its own run of
+    ``width`` slots in one flat scatter target."""
+    n = math.prod(lead)
+    return (torch.arange(n, device=device) * width).reshape(tuple(lead) + (1,))
+
+
 def _resolve_one_to_one(ok, best_idx, best, n_targets: int):
     """Each target keypoint keeps exactly one winning query: min over
-    (distance, query-index) keys."""
-    q = torch.arange(best_idx.shape[0], device=best_idx.device)
+    (distance, query-index) keys. Leading axes are a batch: one scatter
+    into (n_targets + 1) slots per entry."""
+    dev = best_idx.device
+    q = torch.arange(best_idx.shape[-1], device=dev)
     key = (torch.clamp(best.to(torch.int64), 0, (1 << 18) - 1) << 12) | (q & 0xFFF)
-    kp_best = torch.full((n_targets + 1,), _INT32_MAX, dtype=torch.int64,
-                         device=best_idx.device)
+    slot = _batch_slots(best_idx.shape[:-1], n_targets + 1, dev)
+    kp_best = torch.full((slot.numel() * (n_targets + 1),), _INT32_MAX,
+                         dtype=torch.int64, device=dev)
     kp_best = kp_best.scatter_reduce(
-        0, torch.where(ok, best_idx, n_targets),
-        torch.where(ok, key, _INT32_MAX), reduce="amin",
+        0, (slot + torch.where(ok, best_idx, n_targets)).reshape(-1),
+        torch.where(ok, key, _INT32_MAX).reshape(-1), reduce="amin",
     )
-    return ok & (key == kp_best[best_idx])
+    return ok & (key == kp_best[slot + best_idx])
 
 
 def rotation_consistency(angle_q, angle_t, valid):
     """Keep only matches whose q-t angle difference falls in the 3 dominant
-    30-bin histogram bins (bins 2/3 dropped below 0.1x the max)."""
+    30-bin histogram bins (bins 2/3 dropped below 0.1x the max). Leading
+    axes are a batch: one histogram per entry."""
     two_pi = 2.0 * math.pi
     rot = torch.remainder(angle_q - angle_t, two_pi)
     b = torch.clamp(torch.round(rot * (HISTO_LENGTH / two_pi)).to(torch.int64),
                     0, HISTO_LENGTH) % HISTO_LENGTH
-    hist = torch.zeros(HISTO_LENGTH, dtype=torch.int32, device=b.device)
-    hist = hist.index_add(0, b, valid.to(torch.int32))
-    top_v, top_i = topk_stable(hist, 3)
-    keep = top_v.to(torch.float32) >= 0.1 * top_v[0].to(torch.float32)
-    keep[0] = True
-    keep_bin = torch.zeros(HISTO_LENGTH, dtype=torch.int32, device=b.device)
-    keep_bin = keep_bin.scatter_reduce(0, top_i, keep.to(torch.int32), reduce="amax")
-    return valid & (keep_bin[b] > 0)
+    lead = tuple(b.shape[:-1])
+    slot = _batch_slots(lead, HISTO_LENGTH, b.device)
+    hist = torch.zeros(slot.numel() * HISTO_LENGTH, dtype=torch.int32, device=b.device)
+    hist = hist.index_add(0, (slot + b).reshape(-1), valid.to(torch.int32).reshape(-1))
+    top_v, top_i = topk_stable(hist.reshape(lead + (HISTO_LENGTH,)), 3)
+    keep = top_v.to(torch.float32) >= 0.1 * top_v[..., :1].to(torch.float32)
+    keep[..., 0] = True
+    keep_bin = torch.zeros(lead + (HISTO_LENGTH,), dtype=torch.int32, device=b.device)
+    keep_bin = keep_bin.scatter_reduce(-1, top_i, keep.to(torch.int32), reduce="amax")
+    return valid & (torch.gather(keep_bin, -1, b) > 0)
 
 
 def _ratio_ok(best, second, th, ratio):
     return (best <= th) & (best.to(torch.float32) <= ratio * second.to(torch.float32))
+
+
+def _laid_out(t, dtype):
+    """``t`` as a contiguous tensor of ``dtype``; ``t`` itself when it is one."""
+    if t.dtype != dtype:
+        t = t.to(dtype)
+    return t if t.is_contiguous() else t.contiguous()
 
 
 def match_by_projection(
@@ -110,33 +130,36 @@ def match_by_projection(
 ):
     """Guided matching: project map points, search nearby keypoints.
 
-    ``radius`` (level-0 pixels, scalar or [Q]) is multiplied by the scale
-    factor of each query's predicted level. Returns (match_idx [Q] int64
-    keypoint index or -1, match_dist [Q] int32); each keypoint keeps only
-    its best query.
+    ``radius`` (level-0 pixels, a scalar or broadcastable to the queries)
+    is multiplied by the scale factor of each query's predicted level.
+    Returns (match_idx [Q] int64 keypoint index or -1, match_dist [Q]
+    int32); each keypoint keeps only its best query. ``query_angle`` and
+    ``feats_angle`` are read only with ``check_rotation``.
+
+    A leading batch axis runs B independent searches through one kernel
+    launch: queries [B, Q, ...] against keypoints [B, N, ...], or against
+    one keypoint set [N, ...] shared by the batch (each entry still
+    resolves its keypoints' winners on its own). Returns [B, Q] tensors.
     """
-    Q = proj_uv.shape[0]
     lvl = torch.clamp(pred_level, 0, scale_factors.shape[0] - 1)
     r = radius * scale_factors[lvl]
     r = torch.broadcast_to(torch.as_tensor(r, dtype=torch.float32,
-                                           device=proj_uv.device), (Q,))
+                                           device=proj_uv.device), pred_level.shape)
     bidx, best, second = cuda_kernels.masked_hamming_best2(
-        query_desc.to(torch.int32).contiguous(),
-        proj_uv.to(torch.float32).contiguous(),
-        r.contiguous(),
-        pred_level.to(torch.int32).contiguous(),
-        proj_valid.to(torch.bool).contiguous(),
-        feats_desc.to(torch.int32).contiguous(),
-        feats_uv.to(torch.float32).contiguous(),
-        feats_level.to(torch.int32).contiguous(),
-        feats_valid.to(torch.bool).contiguous(),
+        _laid_out(query_desc, torch.int32), _laid_out(proj_uv, torch.float32),
+        _laid_out(r, torch.float32), _laid_out(pred_level, torch.int32),
+        _laid_out(proj_valid, torch.bool),
+        _laid_out(feats_desc, torch.int32), _laid_out(feats_uv, torch.float32),
+        _laid_out(feats_level, torch.int32), _laid_out(feats_valid, torch.bool),
         level_tol=level_tol,
     )
     best_idx = bidx.to(torch.int64)
     ok = _ratio_ok(best, second, th, ratio)
     if check_rotation:
-        ok = rotation_consistency(query_angle, feats_angle[best_idx], ok)
-    ok = _resolve_one_to_one(ok, best_idx, best, feats_uv.shape[0])
+        angle_t = (feats_angle[best_idx] if feats_angle.dim() == 1
+                   else torch.gather(feats_angle, -1, best_idx))
+        ok = rotation_consistency(query_angle, angle_t, ok)
+    ok = _resolve_one_to_one(ok, best_idx, best, feats_uv.shape[-2])
     return torch.where(ok, best_idx, -1), torch.where(ok, best, _BIG)
 
 

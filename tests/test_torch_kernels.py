@@ -1,6 +1,8 @@
 """The port's masked Hamming best-two (plain version and CUDA wrapper)
 against the reference's ``_masked_hamming_best2_jnp`` — bit-exact on
-(idx, best, second).
+(idx, best, second), for one problem and for a batch of them, with a CPU
+model of the CUDA kernel's reduction (lane / chunk partials and their
+merge) held to the same contract at tolerance 0.
 
 The reference (and with it JAX) is imported inside :func:`reference`, so
 that the card tests at the end of this file also run where JAX is not
@@ -96,7 +98,7 @@ def test_cpu_route_does_not_count_launches():
 
 @pytest.mark.parametrize(
     "bad",
-    ["dtype", "shape", "device"],
+    ["dtype", "shape", "device", "batch"],
 )
 def test_wrapper_rejects_bad_inputs(bad):
     args = list(to_torch(make_case(16, 24, 2)))
@@ -104,10 +106,133 @@ def test_wrapper_rejects_bad_inputs(bad):
         args[1] = args[1].double()
     elif bad == "shape":
         args[5] = args[5][:, :4].contiguous()
+    elif bad == "batch":  # per-entry targets need batched queries
+        args[5:] = [a[None] for a in args[5:]]
     else:  # a device that is neither CPU nor CUDA: no silent fallback
         args = [a.to("meta") for a in args]
     with pytest.raises(ValueError):
         ck.masked_hamming_best2(*args)
+
+
+def make_batch(B, Q, N, seed, shared_targets, **kw):
+    """B problems stacked: per-entry queries and either per-entry targets
+    or the first entry's target set shared by all."""
+    cases = [make_case(Q, N, seed + 31 * b, **kw) for b in range(B)]
+    if shared_targets:
+        cases = [c[:5] + cases[0][5:] for c in cases]
+    stacked = tuple(np.stack([c[i] for c in cases]) for i in range(9))
+    batch = stacked[:5] + (cases[0][5:] if shared_targets else stacked[5:])
+    return cases, batch
+
+
+@pytest.mark.parametrize("level_tol", [0, 1])
+@pytest.mark.parametrize("shared_targets", [False, True], ids=["per_entry", "shared"])
+def test_batched_plain_is_loop_of_unbatched_and_reference(shared_targets, level_tol):
+    cases, batch = make_batch(4, 150, 130, seed=11 + level_tol, shared_targets=shared_targets)
+    cases[2][4][:] = False  # one problem with no valid query at all
+    batch[4][2] = False
+    got = ck.masked_hamming_best2(*to_torch(batch), level_tol=level_tol)
+    assert all(g.shape == (4, 150) and g.dtype == torch.int32 for g in got)
+    for b, case in enumerate(cases):
+        one = ck.masked_hamming_best2_plain(*to_torch(case), level_tol=level_tol)
+        ref = reference(case, level_tol)
+        for g, o, r in zip(got, one, ref):
+            np.testing.assert_array_equal(g[b].numpy(), o.numpy())
+            np.testing.assert_array_equal(g[b].numpy(), r)
+    assert (got[1][2] == ck._BIG).all() and (got[1][0] < ck._BIG).any()
+
+
+# ---------------------------------------------------------------------------
+# a CPU model of the CUDA kernel's reduction
+# ---------------------------------------------------------------------------
+
+_IDX_BITS, _NONE_D = 22, 511   # csrc/masked_hamming_best2.cu: kIdxBits, kNoneD
+
+
+def _merge(k1, s1, k2, s2):
+    """merge_partial of the kernel: packed keys (d << 22) | index and
+    second-best distances; associative and commutative."""
+    loser = torch.maximum(k1, k2) >> _IDX_BITS
+    return torch.minimum(k1, k2), torch.minimum(torch.minimum(s1, s2), loser)
+
+
+def kernel_reduction_model(args, level_tol, lanes, chunk, rng):
+    """(idx, best, second) the way the kernel reduces them: targets are cut
+    into chunks, a chunk's targets are dealt to ``lanes`` lanes (target j to
+    lane j % lanes), a lane folds its admitted pairs one at a time into a
+    (key, second) partial, the lane partials are merged, and the chunks'
+    results are merged into a running partial — here every fold and merge
+    runs in a shuffled order, which the merge rule must not notice."""
+    from orbslam2_with_quadrics_tpu_torch.ops.matching import hamming_matrix
+
+    qdesc, quv, qrad, qlvl, qvalid, tdesc, tuv, tlvl, tvalid = args
+    Q, N = qdesc.shape[0], tdesc.shape[0]
+    d = hamming_matrix(qdesc, tdesc).to(torch.int64)
+    mask = ((torch.abs(quv[:, 0:1] - tuv[None, :, 0]) <= qrad[:, None])
+            & (torch.abs(quv[:, 1:2] - tuv[None, :, 1]) <= qrad[:, None])
+            & (torch.abs(tlvl[None, :] - qlvl[:, None]) <= level_tol)
+            & qvalid[:, None] & tvalid[None, :])
+    none_key = torch.full((Q,), _NONE_D << _IDX_BITS, dtype=torch.int64)
+    none_d = torch.full((Q,), _NONE_D, dtype=torch.int64)
+    pair_key = torch.where(mask, (d << _IDX_BITS) | torch.arange(N), none_key[:, None])
+    run_k, run_s = none_key, none_d
+    for base in rng.permutation(np.arange(0, N, chunk)):
+        parts = []
+        for lane in range(lanes):
+            k, s = none_key, none_d
+            for j in rng.permutation(np.arange(base + lane, min(base + chunk, N), lanes)):
+                k, s = _merge(k, s, pair_key[:, j], none_d)
+            parts.append((k, s))
+        # the warp merge: min key, then per lane (second if it holds the
+        # winner, else its best distance)
+        keys = torch.stack([p[0] for p in parts])
+        best = keys.min(dim=0).values
+        rest = torch.where(keys == best, torch.stack([p[1] for p in parts]),
+                           keys >> _IDX_BITS)
+        run_k, run_s = _merge(run_k, run_s, best, rest.min(dim=0).values)
+    dist = run_k >> _IDX_BITS
+    empty = dist == _NONE_D
+    idx = torch.where(empty, 0, run_k & ((1 << _IDX_BITS) - 1))
+    return (idx, torch.where(empty, ck._BIG, dist),
+            torch.where(run_s == _NONE_D, ck._BIG, run_s))
+
+
+MODEL_CASES = {
+    # ties whose equal minima fall into different lanes and different chunks
+    "ties_across_lanes_and_chunks": dict(Q=40, N=150, ties=True, lanes=8, chunk=32),
+    "ties_one_chunk": dict(Q=40, N=100, ties=True, lanes=32, chunk=128),
+    "empty_rows": dict(Q=60, N=90, masked_rows=0.5, lanes=8, chunk=64),
+    "ragged_33x1": dict(Q=33, N=1, lanes=32, chunk=1024),
+    "ragged_1x77": dict(Q=1, N=77, lanes=4, chunk=16),
+    "random_120x200": dict(Q=120, N=200, lanes=32, chunk=64),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MODEL_CASES))
+def test_kernel_reduction_model_matches_best_two(name):
+    kw = dict(MODEL_CASES[name])
+    lanes, chunk = kw.pop("lanes"), kw.pop("chunk")
+    case = make_case(kw.pop("Q"), kw.pop("N"), seed=len(name), **kw)
+    if "ties" in name:   # a window that admits nearly every pair
+        case = case[:2] + (np.full_like(case[2], 400.0),) + case[3:]
+    args = to_torch(case)
+    ref = ck.masked_hamming_best2_plain(*args)
+    for shuffle_seed in (0, 1):
+        got = kernel_reduction_model(args, 1, lanes, chunk,
+                                     np.random.RandomState(shuffle_seed))
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g.numpy(), r.numpy())
+    if "ties" in name:
+        assert ((ref[2] == ref[1]) & (ref[1] < ck._BIG)).any()
+    if name == "empty_rows":
+        assert (ref[1][:30] == ck._BIG).all() and (ref[0][:30] == 0).all()
+
+
+def test_q_per_block_fills_the_card():
+    """About two blocks per SM at the main path's shapes on 132 SMs, within
+    the kernel's 8..64 queries per block."""
+    for rows, want in ((1024, 8), (2048, 8), (4096, 16), (10240, 40), (1, 8), (10 ** 6, 64)):
+        assert ck._q_per_block(rows, 132) == want
 
 
 @pytest.fixture
@@ -130,3 +255,44 @@ def test_kernel_matches_plain_on_card(cuda_device, name):
     ref = ck.masked_hamming_best2_plain(*args)
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
+
+
+BATCHED_CASES = {
+    "fuse_fwd_B10": dict(B=10, Q=300, N=260, shared_targets=False),
+    "fuse_rev_B10_shared": dict(B=10, Q=300, N=260, shared_targets=True),
+    "ties_B3": dict(B=3, Q=200, N=1100, shared_targets=False, ties=True),
+    "ragged_B3_300x200": dict(B=3, Q=300, N=200, shared_targets=False, masked_rows=0.3),
+    "two_chunks_B2_shared": dict(B=2, Q=70, N=2500, shared_targets=True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_per_block", [None, 1, 24, 64])
+@pytest.mark.parametrize("name", sorted(BATCHED_CASES))
+def test_batched_kernel_matches_plain_on_card(cuda_device, name, q_per_block):
+    kw = dict(BATCHED_CASES[name])
+    _, batch = make_batch(kw.pop("B"), kw.pop("Q"), kw.pop("N"), seed=5, **kw)
+    if "ties" in name:
+        batch = batch[:2] + (np.full_like(batch[2], 400.0),) + batch[3:]
+    args = to_torch(batch, cuda_device)
+    before = ck.LAUNCHES["masked_hamming_best2"]
+    got = ck.masked_hamming_best2(*args, q_per_block=q_per_block)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["masked_hamming_best2"] == before + 1
+    ref = ck.masked_hamming_best2_plain(*args)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+def test_stage_a_two_radii_one_launch_on_card(cuda_device):
+    """The same queries and targets under two radii as a batch of two equal
+    two unbatched launches."""
+    case = to_torch(make_case(500, 400, seed=9), cuda_device)
+    q = [torch.stack([a, a]) for a in case[:5]]
+    q[2] = torch.stack([case[2], 2.0 * case[2]])
+    got = ck.masked_hamming_best2(*q, *case[5:])
+    for b in range(2):
+        one = ck.masked_hamming_best2(case[0], case[1], q[2][b].contiguous(), *case[3:])
+        for g, o in zip(got, one):
+            assert torch.equal(g[b], o)

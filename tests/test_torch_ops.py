@@ -16,6 +16,8 @@ Tolerances (float32 on both sides, different op order):
   good mask, R within 1e-4, t direction within 1e-4.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -203,6 +205,68 @@ def test_match_by_projection_bit_exact():
         np.testing.assert_array_equal(N(got[0]), np.asarray(ref[0]))
         np.testing.assert_array_equal(N(got[1]), np.asarray(ref[1]))
         assert (np.asarray(ref[0]) >= 0).sum() > 20
+
+
+@pytest.mark.parametrize("shared_targets", [False, True], ids=["per_entry", "shared"])
+def test_match_by_projection_batched_equals_per_entry(shared_targets):
+    """A leading batch axis gives exactly the per-entry results, the
+    one-to-one resolution and the rotation histogram included; the last
+    entry has no valid query."""
+    B, kws = 4, (dict(th=100, ratio=0.9), dict(th=50, ratio=0.8, check_rotation=True),
+                 dict(th=50, ratio=1.0, level_tol=0))
+    sf = T(np.asarray(jorb.scale_factors(4, 1.2)[0]))
+    entries = []
+    for b in range(B):
+        rng, qdesc, quv, tdesc, tuv, src = _match_scene(10 + b)
+        nq, nt = len(qdesc), len(tdesc)
+        plvl = rng.randint(0, 4, nq).astype(np.int32)
+        tlvl = rng.randint(0, 4, nt).astype(np.int32)
+        tlvl[src] = np.clip(plvl + rng.randint(-1, 2, nq), 0, 3)
+        # several queries share a target: the one-to-one resolution decides
+        quv[: nq // 4], qdesc[: nq // 4] = quv[nq // 4: 2 * (nq // 4)], qdesc[nq // 4: 2 * (nq // 4)]
+        entries.append(dict(
+            proj_uv=T(quv), proj_valid=T((rng.rand(nq) < 0.9) & (b != B - 1)),
+            pred_level=T(plvl), query_desc=T(qdesc.view(np.int32)),
+            query_angle=T(rng.rand(nq).astype(np.float32) * 6.0),
+            feats_uv=T(tuv), feats_level=T(tlvl), feats_desc=T(tdesc.view(np.int32)),
+            feats_angle=T(rng.rand(nt).astype(np.float32) * 6.0),
+            feats_valid=T(rng.rand(nt) < 0.95)))
+    if shared_targets:
+        for e in entries[1:]:
+            e.update({k: v for k, v in entries[0].items() if k.startswith("feats_")})
+    radius = T(np.array([[6.0], [6.0], [12.0], [6.0]], np.float32))
+    for kw in kws:
+        batch = {k: (entries[0][k] if shared_targets and k.startswith("feats_")
+                     else torch.stack([e[k] for e in entries])) for k in entries[0]}
+        got = matching.match_by_projection(radius=radius, scale_factors=sf, **batch, **kw)
+        assert got[0].shape == got[1].shape == (B, 300)
+        for b, e in enumerate(entries):
+            one = matching.match_by_projection(radius=float(radius[b, 0]), scale_factors=sf,
+                                               **e, **kw)
+            np.testing.assert_array_equal(N(got[0][b]), N(one[0]))
+            np.testing.assert_array_equal(N(got[1][b]), N(one[1]))
+        assert int((got[0][0] >= 0).sum()) > 20 and int((got[0][B - 1] >= 0).sum()) == 0
+
+
+def test_default_device_is_the_card_and_system_raises_without_one():
+    """MapConfig() names the card; on a machine without one System raises
+    and does not carry on on the CPU."""
+    from orbslam2_with_quadrics_tpu_torch.models import frontend as fe
+    from orbslam2_with_quadrics_tpu_torch.models import map_state as ms
+    from orbslam2_with_quadrics_tpu_torch.models import system as sysm
+
+    assert ms.MapConfig().device == "cuda"
+    cfg = sysm.SystemConfig(
+        frontend=fe.FrontendConfig(height=48, width=64, n_features=64, n_levels=2,
+                                   fx=50.0, fy=50.0, cx=32.0, cy=24.0),
+        map=ms.MapConfig(max_keyframes=4, max_points=256, n_features=64, n_levels=2))
+    if torch.cuda.is_available():
+        assert sysm.System(cfg).map.pt_pos.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            sysm.System(cfg)
+    cpu = sysm.System(dataclasses.replace(cfg, map=dataclasses.replace(cfg.map, device="cpu")))
+    assert cpu.map.pt_pos.device.type == "cpu"
 
 
 def test_match_windowed_bit_exact():

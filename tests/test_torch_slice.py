@@ -26,15 +26,18 @@ import os
 import subprocess
 import sys
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from orbslam2_with_quadrics_tpu.models import frontend as jfe
+from orbslam2_with_quadrics_tpu.models import local_mapping as jlm
 from orbslam2_with_quadrics_tpu.models import map_state as jms
 from orbslam2_with_quadrics_tpu.models import system as jsys
 from orbslam2_with_quadrics_tpu.utils import metrics, synthetic
 from orbslam2_with_quadrics_tpu_torch.models import frontend as fe
+from orbslam2_with_quadrics_tpu_torch.models import local_mapping as lm
 from orbslam2_with_quadrics_tpu_torch.models import map_state as ms
 from orbslam2_with_quadrics_tpu_torch.models import system as sysm
 
@@ -43,12 +46,14 @@ N_FRAMES = 25
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def make_cfg(pkg_fe, pkg_ms, pkg_sys):
+def make_cfg(pkg_fe, pkg_ms, pkg_sys, **map_kw):
+    """The test's SystemConfig from either package; ``map_kw`` carries what
+    only one side's MapConfig has (the port's ``device``)."""
     return pkg_sys.SystemConfig(
         frontend=pkg_fe.FrontendConfig(height=H, width=W, n_features=512, n_levels=4,
                                        fx=FX, fy=FX, cx=W / 2, cy=H / 2),
         map=pkg_ms.MapConfig(max_keyframes=32, max_points=4096, n_features=512,
-                             n_levels=4),
+                             n_levels=4, **map_kw),
         max_frames_between_kf=8,
     )
 
@@ -105,7 +110,8 @@ def test_frame_step_matches_reference(reference_run):
     obs_A = np.asarray(obs_A).astype(np.float32)
     got = sysm._frame_step(
         port_map(m), t(obs_A), t(img), t(T_cw), t(vel), t(prev_obs), int(ref_kf),
-        t(anchor), t(red_cum), make_cfg(fe, ms, sysm).frontend, min_inl, n_kf, n_pt,
+        t(anchor), t(red_cum), make_cfg(fe, ms, sysm, device="cpu").frontend, min_inl,
+        n_kf, n_pt,
     )
     feats, T_new, vel_new, obs_new, pt_vis, pt_fnd, stats, anchor_new = got
     j_feats, jT, jvel, jobs, jvis, jfnd, jstats, janchor = out
@@ -136,7 +142,7 @@ def test_insert_and_map_matches_reference(reference_run):
     m2, aux, red_cum = sysm._insert_and_map(
         port_map(m), fe.frame_features_from_numpy(feats), t(T_cw), int(frame_id),
         int(parent), t(obs_row), t(protect), t(inv_sigma2),
-        make_cfg(fe, ms, sysm).frontend, window,
+        make_cfg(fe, ms, sysm, device="cpu").frontend, window,
     )
     jm2, jaux, jred = out
     got, ref = ms.map_state_to_numpy(m2), {f: np.asarray(getattr(jm2, f)) for f in jm2._fields}
@@ -153,9 +159,31 @@ def test_insert_and_map_matches_reference(reference_run):
     assert live.sum() > 200 and err.max() < 1e-2 and np.median(err) < 1e-4
 
 
+def test_fuse_neighbors_matches_reference(reference_run):
+    """The batched sweeps of ``fuse_neighbors`` (two matching launches for
+    all neighbours) against the reference's sequential scan, on the map the
+    reference left after a mapping pass, with the newest keyframe's row
+    emptied so that the sweeps have observations to add back: observation
+    table and point validity identical."""
+    jm = reference_run["insert_and_map"][2][0]
+    kf = int(jm.n_kf) - 1
+    obs = np.array(jm.kf_obs_point)
+    obs[kf, ::2] = -1
+    jm = jm._replace(kf_obs_point=jnp.asarray(obs))
+    K = np.array([FX, FX, W / 2, H / 2], np.float32)
+    ref = jlm.fuse_neighbors(jm, jnp.asarray(kf, dtype=jnp.int32),
+                             jnp.asarray(K), height=H, width=W, n_levels=4, scale=1.2)
+    got = lm.fuse_neighbors(port_map(jm), torch.tensor(kf, dtype=torch.int32), t(K),
+                            height=H, width=W, n_levels=4, scale=1.2)
+    np.testing.assert_array_equal(got.kf_obs_point.numpy(), np.asarray(ref.kf_obs_point))
+    np.testing.assert_array_equal(got.pt_valid.numpy(), np.asarray(ref.pt_valid))
+    changed = (np.asarray(ref.kf_obs_point) != obs).sum()
+    assert changed > 20
+
+
 def test_whole_slice_matches_reference(reference_run):
     imgs, poses = reference_run["imgs"], reference_run["poses"]
-    slam = sysm.System(make_cfg(fe, ms, sysm))
+    slam = sysm.System(make_cfg(fe, ms, sysm, device="cpu"))
     for i in range(N_FRAMES):
         slam.track_monocular(imgs[i], timestamp=i / 30.0)
     traj = slam.full_trajectory()
