@@ -1,4 +1,5 @@
-"""Per-frame perception frontend: ORB extraction + undistortion (mono).
+"""Per-frame perception frontend: ORB extraction + undistortion, the RGB-D
+depth lookup and the stereo left-right match.
 
 Counterpart of the reference's ``models/frontend.py``: a fixed-capacity
 ``FrameFeatures`` per frame, on the image's device.
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from ..ops import camera, orb
+from ..ops import stereo as stereo_ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +84,32 @@ def extract_mono(cfg: FrontendConfig, img) -> FrameFeatures:
         desc=f.desc, valid=f.valid,
         ur=torch.full((n,), -1.0, device=dev), depth=torch.zeros(n, device=dev),
     )
+
+
+def extract_rgbd(cfg: FrontendConfig, img, depth) -> FrameFeatures:
+    """RGB-D: depth lookup at the (raw, rounded) keypoints -> pseudo right
+    coordinate (ComputeStereoFromRGBD). ``depth`` is [H,W] float32, already
+    scaled to the map's unit."""
+    f = extract_mono(cfg, img)
+    y = torch.clamp(torch.round(f.uv[:, 1]).to(torch.int64), 0, depth.shape[0] - 1)
+    x = torch.clamp(torch.round(f.uv[:, 0]).to(torch.int64), 0, depth.shape[1] - 1)
+    d = depth[y, x]
+    has = d > 0
+    ur = torch.where(has, f.uv_und[:, 0] - cfg.bf / torch.clamp(d, min=1e-6), -1.0)
+    return f._replace(ur=ur, depth=torch.where(has, d, 0.0))
+
+
+def extract_stereo(cfg: FrontendConfig, img_l, img_r) -> FrameFeatures:
+    """Stereo: extract both images, then the row-constrained descriptor
+    match with SAD subpixel refinement (ComputeStereoMatches)."""
+    img_l = img_l.to(torch.float32)
+    img_r = img_r.to(torch.float32)
+    fl = extract_mono(cfg, img_l)
+    fr = orb.extract(img_r, n_features=cfg.n_features, n_levels=cfg.n_levels,
+                     scale=cfg.scale_factor, th_fast=cfg.th_fast,
+                     th_fast_min=cfg.th_fast_min)
+    ur, depth = stereo_ops.stereo_match(cfg, img_l, img_r, fl, fr)
+    return fl._replace(ur=ur, depth=depth)
 
 
 def frame_features_from_numpy(src, device="cpu") -> FrameFeatures:

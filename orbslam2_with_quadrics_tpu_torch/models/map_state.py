@@ -328,6 +328,83 @@ def update_point_stats(m: MapState, scale_factors):
     )
 
 
+# ---------------------------------------------------------------------------
+# capacity: compaction and growth of the pools
+# ---------------------------------------------------------------------------
+
+def compact_points(m: MapState):
+    """Reclaim culled point slots: stable-compact the valid points to the
+    low end of the pool and remap the observation table. Returns
+    ``(new_map, new_idx [P] int32)`` where ``new_idx[old_id]`` is the
+    point's new slot (meaningful only where the old slot was valid), so
+    that callers can remap the ids they hold."""
+    P = m.pt_pos.shape[0]
+    valid = m.pt_valid
+    new_idx = (torch.cumsum(valid.to(torch.int32), 0) - 1).to(torch.int32)
+    # perm[r] = old index of the r-th valid point (stable)
+    perm = torch.argsort((~valid).to(torch.int32), stable=True)
+    obs = m.kf_obs_point
+    oc = torch.clamp(obs.to(torch.int64), 0, P - 1)
+    ok = (obs >= 0) & valid[oc]
+    return m._replace(
+        pt_pos=m.pt_pos[perm], pt_valid=valid[perm], pt_desc=m.pt_desc[perm],
+        pt_normal=m.pt_normal[perm], pt_min_dist=m.pt_min_dist[perm],
+        pt_max_dist=m.pt_max_dist[perm], pt_found=m.pt_found[perm],
+        pt_visible=m.pt_visible[perm], pt_first_kf=m.pt_first_kf[perm],
+        n_pt=torch.sum(valid.to(torch.int32)).to(torch.int32),
+        kf_obs_point=torch.where(ok, new_idx[oc], -1),
+    ), new_idx
+
+
+def compact_keyframes(m: MapState, perm, new_idx):
+    """Pack valid keyframes to the low end of the pool. ``perm[r]`` is the
+    old slot stored at new slot r and ``new_idx[old]`` the new slot of a
+    (valid) old keyframe; both come from the caller, which must FIRST
+    re-anchor every keyframe id it holds outside the MapState (see
+    ``System._compact_keyframes``)."""
+    K = m.kf_valid.shape[0]
+    perm = perm.to(torch.int64)
+    new_idx = new_idx.to(torch.int32)
+
+    def g(a):
+        return a[perm]
+
+    valid_new = g(m.kf_valid)
+    parent = g(m.kf_parent)
+    # live keyframes' parents are live (culling reparents children), so an
+    # id remap suffices; invalid rows clear to -1
+    parent = torch.where(valid_new & (parent >= 0),
+                         new_idx[torch.clamp(parent.to(torch.int64), 0, K - 1)], -1)
+    first = m.pt_first_kf
+    first_new = torch.where(first >= 0,
+                            new_idx[torch.clamp(first.to(torch.int64), 0, K - 1)], -1)
+    return m._replace(
+        kf_pose=g(m.kf_pose), kf_valid=valid_new,
+        kf_frame_id=torch.where(valid_new, g(m.kf_frame_id), -1),
+        kf_parent=parent, kf_tcp=g(m.kf_tcp), kf_uv=g(m.kf_uv), kf_ur=g(m.kf_ur),
+        kf_level=g(m.kf_level), kf_angle=g(m.kf_angle), kf_desc=g(m.kf_desc),
+        kf_kp_valid=g(m.kf_kp_valid) & valid_new[:, None],
+        kf_obs_point=torch.where(valid_new[:, None], g(m.kf_obs_point), -1),
+        pt_first_kf=first_new,
+        n_kf=torch.sum(valid_new.to(torch.int32)).to(torch.int32),
+    )
+
+
+def grow_map(m: MapState, new_K: int | None = None, new_P: int | None = None):
+    """Grow the keyframe and/or point pools by appending empty rows (those
+    of ``empty_map``) at the high end: ids are preserved, so nothing needs
+    remapping. Callers double the capacity so that growth happens O(log)
+    times over a run."""
+    K, N = m.kf_obs_point.shape
+    P = m.pt_pos.shape[0]
+    new_K, new_P = new_K or K, new_P or P
+    assert new_K >= K and new_P >= P
+    ext = empty_map(MapConfig(max_keyframes=new_K - K, max_points=new_P - P,
+                              n_features=N, device=str(m.pt_pos.device)))
+    return m._replace(**{f: torch.cat([getattr(m, f), getattr(ext, f)])
+                         for f in MapState._fields if f not in ("n_kf", "n_pt")})
+
+
 def camera_centers(m: MapState):
     """[K,3] camera centers C = -R^T t."""
     R = lie.quat_to_matrix(m.kf_pose[:, :4])

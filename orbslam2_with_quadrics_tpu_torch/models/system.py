@@ -1,27 +1,33 @@
-"""System facade, monocular subset: ``System.track_monocular``.
+"""System facade: ``System.track_monocular``, ``track_rgbd``, ``track_stereo``.
 
-Counterpart of the reference's ``models/system.py`` for the monocular main
-path: two-view initialization (``_mono_init``), the per-frame fused step
-(``_frame_step``) behind a depth-1 pipeline (``_track_fast``: frame i's
-stats are read while frame i+1 runs on the device) and keyframe-rate
-mapping (``_insert_and_map``). A device-to-host copy into pinned memory
-plus a CUDA event replaces JAX's ``copy_to_host_async`` / ``is_ready``.
+Counterpart of the reference's ``models/system.py``: monocular two-view
+initialization (``_mono_init``) or depth initialization (``_depth_init``),
+then the per-frame fused step (``_frame_step``) behind a depth-1 pipeline
+(``_track_fast``: frame i's stats are read while frame i+1 runs on the
+device) and keyframe-rate mapping (``_insert_and_map``). A device-to-host
+copy into pinned memory plus a CUDA event replaces JAX's
+``copy_to_host_async`` / ``is_ready``. ``ORB_SYNC_TRACK=1`` forces the
+synchronous twin (``_track`` / ``_insert_keyframe``) in the OK state too:
+the two paths must agree, and a regression is bisected by diffing them. A
+pool that fills is compacted or doubled (``_ensure_capacity``).
 
-Not ported yet — each raises ``NotImplementedError`` naming the ROADMAP
-item that brings it: stereo and RGB-D, loop closing, quadric landmarks,
-asynchronous global BA, relocalization after tracking loss, and pool
-compaction or growth. The keyframe database and vocabulary feed only loop
-closing and relocalization, so the slice keeps none.
+Not ported yet, each raises ``NotImplementedError`` naming the ROADMAP
+item that brings it: relocalization after tracking loss, loop closing,
+quadric landmarks, asynchronous global BA. The keyframe database and
+vocabulary feed only loop closing and relocalization, so there is none.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import sys
 
 import numpy as np
 import torch
 
-from ..ops import init2view, lie, matching, orb
+from ..ops import camera, init2view, lie, matching, orb
+from ..utils import metrics
 from . import frontend as fe
 from . import local_mapping as lm
 from . import map_state as ms
@@ -32,17 +38,23 @@ from . import tracking as tr
 class SystemConfig:
     frontend: fe.FrontendConfig
     map: ms.MapConfig
-    sensor: str = "mono"
+    sensor: str = "mono"            # mono | stereo | rgbd
     min_frames_between_kf: int = 0
     max_frames_between_kf: int = 30
     kf_idle_frames: int = 3         # mapping occupancy floor after a KF
     kf_ref_ratio: float = 0.9       # thRefRatio (mono)
+    kf_stereo_ref_ratio: float = 0.75  # thRefRatio (stereo / RGB-D)
+    kf_close_tracked_th: int = 100  # bNeedToInsertClose: insert when fewer
+    kf_close_untracked_th: int = 70 # close points are tracked and more are
+                                    # untracked than these (the constants
+                                    # assume ~2000-feature frames)
     kf_redundancy_th: float = 0.9   # skip c1b insertion when this share of
                                     # tracked points is already covered >= 3x
     kf_strong_inl: int = 100        # ... and only while tracking is strong
     min_inliers_track: int = 30
     min_inliers_kf: int = 15
     local_ba_window: int = 16
+    depth_factor: float = 1.0       # RGB-D depth map scaling
     enable_loop_closing: bool = False
     enable_quadrics: bool = False
     async_gba: bool = False
@@ -51,7 +63,7 @@ class SystemConfig:
 
 
 _NOT_PORTED = {
-    "sensor": "stereo and RGB-D tracking (ROADMAP queue 1 item 11)",
+    "relocalize": "relocalization after tracking loss (ROADMAP queue 1 item 12)",
     "enable_loop_closing": "loop closing (ROADMAP queue 1 item 12)",
     "enable_quadrics": "quadric object landmarks (ROADMAP queue 1 item 13)",
     "async_gba": "asynchronous global BA (ROADMAP queue 1 item 12)",
@@ -83,15 +95,21 @@ class _HostCopy:
 
 
 class System:
-    """Monocular SLAM facade (System::TrackMonocular)."""
+    """SLAM facade (System::TrackMonocular / TrackStereo / TrackRGBD)."""
 
     NOT_INITIALIZED = 0
     OK = 1
     LOST = 2
 
     def __init__(self, cfg: SystemConfig):
-        if cfg.sensor != "mono":
-            raise NotImplementedError(_NOT_PORTED["sensor"])
+        if cfg.sensor not in ("mono", "stereo", "rgbd"):
+            raise ValueError(f"sensor={cfg.sensor!r}: expected mono, stereo or rgbd")
+        # metric sensors need bf = fx * baseline: the close-point gates are
+        # depth < depth_th * bf / fx, so bf = 0 would create no depth point
+        if cfg.sensor in ("stereo", "rgbd") and not cfg.frontend.bf > 0:
+            raise ValueError(
+                f"sensor={cfg.sensor!r} requires frontend.bf > 0 (fx * baseline); "
+                f"got bf={cfg.frontend.bf}")
         for flag in ("enable_loop_closing", "enable_quadrics", "async_gba"):
             if getattr(cfg, flag):
                 raise NotImplementedError(_NOT_PORTED[flag])
@@ -109,34 +127,113 @@ class System:
         self._init_fe_cfg = dataclasses.replace(fcfg, n_features=2 * fcfg.n_features)
         # two-view RANSAC samples, seeded as the reference's PRNGKey(0)
         self._generator = torch.Generator(device=self.device).manual_seed(0)
+        # ORB_SYNC_TRACK=1 forces the synchronous _track path in the OK
+        # state too: the fast / sync bisect switch
+        self._force_sync = os.environ.get("ORB_SYNC_TRACK", "") == "1"
+        self.only_tracking = False   # localization-only mode
         self.frame_id = 0
         self.trajectory = []  # (frame_id, timestamp, ref kf slot, T_rel np [7])
         self.metrics = []
         self.n_kfs_created = 0
         self.n_kfs_culled = 0
+        # capacity events
+        self.n_point_compactions = 0
+        self.n_point_growths = 0
+        self.n_kf_compactions = 0
+        self.n_kf_growths = 0
+        self._extra_obs_holders = []  # frames whose obs need point-id remaps
         self._reset_gen = 0
         self.reset()
 
     # ------------------------------------------------------------------
-    # public per-frame entry
+    # public per-frame entries
     # ------------------------------------------------------------------
+
+    def _upload(self, img):
+        """An image (numpy array or tensor) on the system's device; pinned
+        and non-blocking, so the upload does not wait for queued work."""
+        img = torch.as_tensor(img)
+        if self.device.type == "cuda" and not img.is_cuda:
+            return img.pin_memory().to(self.device, non_blocking=True)
+        return img.to(self.device)
+
+    def _fast(self) -> bool:
+        return self.state == self.OK and not self._force_sync
 
     def track_monocular(self, img, timestamp=0.0, detections=None):
         """Track one grayscale frame (numpy array or tensor, any integer or
         float dtype). Returns the frame's T_cw [7]."""
+        assert self.cfg.sensor == "mono", "called track_monocular but sensor is not mono"
         if detections is not None:
             raise NotImplementedError(_NOT_PORTED["enable_quadrics"])
-        img = torch.as_tensor(img)
-        if self.device.type == "cuda" and not img.is_cuda:
-            # pinned + non_blocking: the upload does not wait for queued work
-            img = img.pin_memory().to(self.device, non_blocking=True)
-        else:
-            img = img.to(self.device)
-        if self.state == self.OK:
-            return self._track_fast(img, timestamp)
+        img = self._upload(img)
+        if self._fast():
+            return self._track_fast(img, None, timestamp)
         fcfg = (self._init_fe_cfg if self.state == self.NOT_INITIALIZED
                 else self.cfg.frontend)
         return self._track(fe.extract_mono(fcfg, img), timestamp)
+
+    def track_rgbd(self, img, depth, timestamp=0.0, detections=None):
+        """Track one grayscale frame with its registered depth map (any
+        dtype; multiplied by ``depth_factor``). Returns T_cw [7]."""
+        assert self.cfg.sensor == "rgbd", "called track_rgbd but sensor is not rgbd"
+        if detections is not None:
+            raise NotImplementedError(_NOT_PORTED["enable_quadrics"])
+        img, depth = self._upload(img), self._upload(depth)
+        if self._fast():
+            return self._track_fast(img, depth, timestamp)
+        feats = fe.extract_rgbd(self.cfg.frontend, img,
+                                depth.to(torch.float32) * self.cfg.depth_factor)
+        return self._track(feats, timestamp)
+
+    def track_stereo(self, img_l, img_r, timestamp=0.0, detections=None):
+        """Track one rectified stereo pair. Returns the left camera's T_cw [7]."""
+        assert self.cfg.sensor == "stereo", "called track_stereo but sensor is not stereo"
+        if detections is not None:
+            raise NotImplementedError(_NOT_PORTED["enable_quadrics"])
+        img_l, img_r = self._upload(img_l), self._upload(img_r)
+        if self._fast():
+            return self._track_fast(img_l, img_r, timestamp)
+        return self._track(fe.extract_stereo(self.cfg.frontend, img_l, img_r), timestamp)
+
+    # ------------------------------------------------------------------
+    # mode switches / status getters
+    # ------------------------------------------------------------------
+
+    def activate_localization_mode(self):
+        """Stop map building, camera tracking only: keyframe insertion and
+        all local-mapping work are skipped while set."""
+        self.only_tracking = True
+
+    def deactivate_localization_mode(self):
+        self.only_tracking = False
+
+    def shutdown(self):
+        """Flush all in-flight work: the pending pipelined frame, the
+        in-flight mapping pass and the device's queue. Call before reading
+        trajectories."""
+        self._flush()
+        self._consume_map_aux(block=True)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def get_tracking_state(self):
+        """NOT_INITIALIZED / OK / LOST."""
+        return self.state
+
+    def get_tracked_map_points(self):
+        """(ids, positions [n,3]) of the map points the most recent frame
+        observes, as numpy arrays."""
+        obs = self.prev_obs.cpu().numpy()
+        ids = obs[obs >= 0]
+        return ids, self.map.pt_pos.cpu().numpy()[ids]
+
+    def get_tracked_keypoints_un(self):
+        """Undistorted keypoints [n,2] of the most recent frame (numpy)."""
+        if self.last_feats is None:
+            return np.zeros((0, 2), np.float32)
+        valid = self.last_feats.valid.cpu().numpy()
+        return self.last_feats.uv_und.cpu().numpy()[valid]
 
     # ------------------------------------------------------------------
 
@@ -177,36 +274,90 @@ class System:
             self._obs_A_src = src
         return self._obs_A
 
+    def _local_window(self):
+        """(n_local_kf, n_local_pt): the local-map budgets. Bounded by the
+        configured pool sizes, as in the reference, also after a pool has
+        grown (``select_local_points`` bounds them by the map's own shapes)."""
+        cfg = self.cfg
+        return (min(cfg.n_local_kf, cfg.map.max_keyframes),
+                min(cfg.n_local_pt, cfg.map.max_points))
+
+    def _relocalize(self, feats) -> bool:
+        raise NotImplementedError(_NOT_PORTED["relocalize"])
+
     def _track(self, feats, timestamp):
-        """Synchronous path: monocular initialization only."""
+        """Synchronous path: initialization, and with ``_force_sync`` the
+        steady state too (one blocking read of the inlier count per frame)."""
+        cfg = self.cfg
         self.last_feats = feats
-        if self.state != self.NOT_INITIALIZED:
-            raise NotImplementedError(
-                "synchronous tracking outside initialization (the LOST state "
-                "and relocalization): ROADMAP queue 1 item 12")
-        self._mono_init(feats)
+        if self.state == self.NOT_INITIALIZED:
+            if cfg.sensor == "mono":
+                self._mono_init(feats)
+            else:
+                self._depth_init(feats)
+            self.frame_id += 1
+            return self._record(timestamp)
+
+        # motion-model prediction
+        T_pred = lie.se3_compose(self.velocity, self.T_cw)
+        n_local_kf, n_local_pt = self._local_window()
+        res = tr.track_frame(
+            self.map, feats, T_pred, self.prev_obs, self._K, cfg.frontend.bf,
+            height=cfg.frontend.height, width=cfg.frontend.width,
+            n_levels=cfg.frontend.n_levels, scale=cfg.frontend.scale_factor,
+            n_local_kf=n_local_kf, n_local_pt=n_local_pt, obs_A=self._get_obs_A(),
+        )
+        n_inl = int(res.n_inliers)
+        if n_inl < cfg.min_inliers_track:
+            # lost right after a weak mono init -> start over
+            if cfg.sensor == "mono" and int(self.map.n_kf) <= 5:
+                self.reset()
+                self.frame_id += 1
+                return self._record(timestamp)
+            self.state = self.LOST
+            self.velocity = lie.se3_identity(device=self.device)
+            if self._relocalize(feats):
+                self.state = self.OK
+                self.frame_id += 1
+                self.metrics.append({"frame": self.frame_id, "inliers": n_inl, "reloc": True})
+                return self._record(timestamp)
+            self.frame_id += 1
+            self.metrics.append({"frame": self.frame_id, "inliers": n_inl, "lost": True})
+            return self._record(timestamp)
+
+        self.state = self.OK
+        self.velocity = lie.se3_compose(res.T_cw, lie.se3_inverse(self.T_cw))
+        self.T_cw = res.T_cw
+        self.prev_obs = res.obs_point
+        # tracking statistics for point culling
+        self.map = _bump_stats(self.map, res.visible_pt, res.found_pt)
+        # localization-only mode never inserts keyframes
+        if not self.only_tracking and self._need_new_keyframe(n_inl, feats, res):
+            self._insert_keyframe(feats, res)
         self.frame_id += 1
+        self.metrics.append({"frame": self.frame_id, "inliers": n_inl, "lost": False})
         return self._record(timestamp)
 
     # ------------------------------------------------------------------
     # pipelined steady state
     # ------------------------------------------------------------------
 
-    def _track_fast(self, img, timestamp):
+    def _track_fast(self, img, aux_img, timestamp):
         """Dispatch one fused frame step, start the copy of its stats to the
-        host, and process the PREVIOUS frame's stats."""
+        host, and process the PREVIOUS frame's stats. ``aux_img`` is the
+        depth map (RGB-D), the right image (stereo) or None (mono)."""
         cfg = self.cfg
         if self._ref_anchor is None:
             self._ref_anchor = self.map.kf_pose[self.ref_kf]
         if self._red_cum is None:
             self._red_cum = ms.obs_level_cum(self.map, cfg.frontend.n_levels)
+        n_local_kf, n_local_pt = self._local_window()
         (feats, T_new, vel_new, obs_new, pt_vis, pt_fnd, stats,
          anchor_new) = _frame_step(
-            self.map, self._get_obs_A(), img, self.T_cw, self.velocity,
-            self.prev_obs, self.ref_kf, self._ref_anchor, self._red_cum,
-            cfg.frontend, cfg.min_inliers_track,
-            min(cfg.n_local_kf, cfg.map.max_keyframes),
-            min(cfg.n_local_pt, cfg.map.max_points),
+            self.map, self._get_obs_A(), img, img if aux_img is None else aux_img,
+            self.T_cw, self.velocity, self.prev_obs, self.ref_kf, self._ref_anchor,
+            self._red_cum, cfg.frontend, cfg.sensor, cfg.min_inliers_track,
+            n_local_kf, n_local_pt, cfg.depth_factor,
         )
         self._ref_anchor = anchor_new
         self.last_feats = feats
@@ -240,27 +391,50 @@ class System:
                              "matches": int(s[1]), "lost": False})
         self.trajectory.append(
             (p["frame_id"], p["ts"], p["ref_kf"], s[11:18].astype(np.float32)))
-        if allow_kf and self._need_kf_fast(p, n_inl, s):
+        if allow_kf and not self.only_tracking and self._need_kf_fast(p, n_inl, s):
             self._insert_keyframe_fast(p, n_inl)
 
     def _handle_lost(self, p, s):
-        """Tracking failure: right after a weak initialization (<= 5
-        keyframes) both in-flight frames are recorded lost and the system
-        starts over; later, the reference relocalizes — not ported."""
+        """Deferred-lost handling: when frame i-1's stats reveal a tracking
+        failure, frame i is already in flight; its device-side ok-gate kept
+        the pose unchanged. Right after a weak mono initialization (<= 5
+        keyframes) both frames are recorded lost and the system starts
+        over. Otherwise a younger frame that re-tracked on its own stays as
+        the pipeline head; else the reference relocalizes (not ported)."""
+        cfg = self.cfg
         young = self._pend
         self._pend = None
-        if self._n_kf_host > 5:
-            raise NotImplementedError(
-                "relocalization after tracking loss: ROADMAP queue 1 item 12")
-        frames = [(p, s)]
-        if young is not None:
-            frames.append((young, young["stats"].numpy()))
-        for q, qs in frames:
+
+        def record(q, qs):
             self.metrics.append({"frame": q["frame_id"] + 1, "inliers": int(qs[0]),
                                  "lost": True})
             self.trajectory.append(
                 (q["frame_id"], q["ts"], q["ref_kf"], qs[11:18].astype(np.float32)))
-        self.reset()
+
+        ys = young["stats"].numpy() if young is not None else None
+        if cfg.sensor == "mono" and self._n_kf_host <= 5:
+            record(p, s)
+            if young is not None:
+                record(young, ys)
+            self.reset()
+            return
+        record(p, s)
+        feats = p["feats"]
+        if young is not None:
+            if int(ys[0]) >= cfg.min_inliers_track:
+                # it tracked from the unchanged pose: keep a good frame
+                self.state = self.OK
+                self._pend = young
+                return
+            record(young, ys)
+            self.T_cw = young["T"]
+            feats = young["feats"]
+        self.state = self.LOST
+        self.velocity = lie.se3_identity(device=self.device)
+        self._ref_anchor = None
+        if self._relocalize(feats):
+            self.state = self.OK
+            self.metrics.append({"frame": self.frame_id, "inliers": -1, "reloc": True})
 
     def _consume_map_aux(self, block: bool) -> bool:
         """Read the in-flight mapping pass's aux vector when its copy has
@@ -284,12 +458,22 @@ class System:
         min_obs = 3 if self._n_kf_host > 2 else 2
         return max(self._n_ref_vals.get(min_obs, 1), 1)
 
+    def _ref_ratio(self, n_kfs: int) -> float:
+        """thRefRatio: 0.75 stereo / RGB-D, 0.4 while the map has fewer than
+        2 keyframes, 0.9 for mono (overrides both)."""
+        cfg = self.cfg
+        if cfg.sensor == "mono":
+            return cfg.kf_ref_ratio
+        return 0.4 if n_kfs < 2 else cfg.kf_stereo_ref_ratio
+
     def _need_kf_fast(self, p, n_inl, s) -> bool:
-        """NeedNewKeyFrame (mono): c1a = the max cadence elapsed (waits for
-        mapping), c1b = mapping idle and the min gap elapsed; c2 = inliers
-        below thRefRatio of the reference keyframe's tracked points, forced
-        by c1a, vetoed while tracking is strong and >= kf_redundancy_th of
-        the tracked points are already covered (stats[18])."""
+        """NeedNewKeyFrame with the real mapping-idle gate: c1a = the max
+        cadence elapsed, c1c (stereo / RGB-D) = tracking weak or close
+        points needed; both first drain mapping. c1b = mapping idle and the
+        min gap elapsed. c2 = inliers below thRefRatio of the reference
+        keyframe's tracked points (or close points needed), forced by c1a,
+        vetoed while tracking is strong and >= kf_redundancy_th of the
+        tracked points are already covered (stats[18])."""
         cfg = self.cfg
         since = p["frame_id"] - self.last_kf_frame
         idle = self._consume_map_aux(block=False)
@@ -297,31 +481,48 @@ class System:
         if c1a and not idle:
             idle = self._consume_map_aux(block=True)
         n_ref = self._n_ref_current()
+        need_close = False
+        if cfg.sensor in ("stereo", "rgbd"):
+            need_close = bool(s[2] < cfg.kf_close_tracked_th
+                              and s[3] > cfg.kf_close_untracked_th)
+        c1c = cfg.sensor != "mono" and (n_inl < 0.25 * n_ref or need_close)
+        if c1c and not idle:
+            idle = self._consume_map_aux(block=True)
+            n_ref = self._n_ref_current()
         c1b = idle and since >= max(cfg.min_frames_between_kf, cfg.kf_idle_frames, 1)
-        c2 = n_inl < cfg.kf_ref_ratio * n_ref and n_inl > cfg.min_inliers_kf
+        ratio = self._ref_ratio(self._n_kf_host)
+        c2 = (n_inl < ratio * n_ref or need_close) and n_inl > cfg.min_inliers_kf
         if c1a and n_inl > cfg.min_inliers_kf:
             c2 = True
         redundancy = int(s[18]) / max(n_inl, 1)
-        if (redundancy >= cfg.kf_redundancy_th and not c1a
+        if (redundancy >= cfg.kf_redundancy_th and not need_close and not c1a
                 and n_inl >= cfg.kf_strong_inl):
             c2 = False
-        return bool((c1a or c1b) and c2)
+        return bool((c1a or c1b or c1c) and c2)
 
-    def _ensure_capacity_fast(self):
-        """Host-estimate capacity check; near the pools' end, drain the
-        pipeline and check exactly. Compaction and growth are not ported."""
-        cfg = self.cfg
-        P, K, N = cfg.map.max_points, cfg.map.max_keyframes, cfg.map.n_features
+    def _protect_mask(self):
+        """[K] keyframes that culling must keep (loop-edge ends in the
+        reference; none without loop closing), sized by the map's pool."""
+        return torch.zeros(self.map.kf_valid.shape[0], dtype=torch.bool, device=self.device)
+
+    def _ensure_capacity_fast(self, p):
+        """Host-estimate capacity check, without a device read in the
+        steady state. When the estimate says a pool might fill within one
+        keyframe's insertions, drain the pipeline once and run the exact
+        ``_ensure_capacity``; ``p`` is the frame about to be inserted."""
+        P, K = self.map.pt_pos.shape[0], self.map.kf_valid.shape[0]
+        N = self.cfg.map.n_features
         if self._n_pt_est + 3 * N < P and self._n_kf_host + 2 < K:
             return
         self._flush(allow_kf=False)
         self._consume_map_aux(block=True)
-        n_pt, n_kf = int(self.map.n_pt), int(self.map.n_kf)
-        if P - n_pt < 3 * N or K - n_kf < 2:
-            raise NotImplementedError(
-                f"map pool compaction / growth (points {n_pt}/{P}, keyframes "
-                f"{n_kf}/{K}): ROADMAP queue 1 item 10")
-        self._n_pt_est, self._n_kf_host = n_pt, n_kf
+        self._extra_obs_holders = [p]
+        try:
+            self._ensure_capacity()
+        finally:
+            self._extra_obs_holders = []
+        self._n_pt_est = int(self.map.n_pt)
+        self._n_kf_host = int(self.map.n_kf)
         self._kf_live = int(self.map.kf_valid.sum())
 
     def _insert_keyframe_fast(self, p, n_inl):
@@ -329,21 +530,22 @@ class System:
         mapping pass; its aux vector is read by later keyframe decisions."""
         cfg = self.cfg
         gen = self._reset_gen
-        self._ensure_capacity_fast()
+        self._ensure_capacity_fast(p)
         # the capacity drain may have processed a lost frame and reset
         if self.state != self.OK or gen != self._reset_gen:
             return
         slot = self._n_kf_host
         m2, aux, red_cum = _insert_and_map(
             self.map, p["feats"], p["T"], p["frame_id"], self.ref_kf, p["obs"],
-            torch.zeros(cfg.map.max_keyframes, dtype=torch.bool, device=self.device),
-            self._inv_sigma2, cfg.frontend, cfg.local_ba_window,
+            self._protect_mask(), self._inv_sigma2, cfg.frontend, cfg.sensor,
+            cfg.local_ba_window,
         )
         self._red_cum = red_cum
         self.map = m2
         self._map_aux = _HostCopy(aux)
         self._n_kf_host += 1
         self._kf_live += 1
+        # until aux lands, bound the pool usage by the per-keyframe maximum
         self._n_pt_est += 2 * cfg.map.n_features
         self.ref_kf = slot
         self.ref_kf_matches = n_inl
@@ -362,7 +564,7 @@ class System:
 
     def _refresh_host_counters(self):
         """Make the pipeline's host mirrors exact after a synchronous map
-        change (initialization)."""
+        change (initialization, a synchronous keyframe insertion)."""
         self._red_cum = None
         self._n_kf_host = int(self.map.n_kf)
         self._kf_live = int(self.map.kf_valid.sum())
@@ -370,6 +572,210 @@ class System:
         self._ref_anchor = None
         self._n_ref_vals = {2: max(self._ref_kf_tracked(2), 1),
                             3: max(self._ref_kf_tracked(3), 1)}
+
+    # ------------------------------------------------------------------
+    # synchronous keyframe decision and insertion
+    # ------------------------------------------------------------------
+
+    def _need_new_keyframe(self, n_inl, feats, res) -> bool:
+        """NeedNewKeyFrame, synchronous subset: mapping never blocks, so
+        c1b holds once kf_idle_frames (the mapping-occupancy model) and the
+        min gap have passed."""
+        cfg = self.cfg
+        since = self.frame_id - self.last_kf_frame
+        need_close = False
+        if cfg.sensor in ("stereo", "rgbd"):
+            n_tc, n_nc = _close_census(cfg.frontend, feats, res.obs_point)
+            need_close = (int(n_tc) < cfg.kf_close_tracked_th
+                          and int(n_nc) > cfg.kf_close_untracked_th)
+        # nRefMatches: the reference keyframe's points with >= minObs
+        # observations, recomputed each frame
+        n_kfs = int(self.map.n_kf)
+        n_ref = max(self._ref_kf_tracked(3 if n_kfs > 2 else 2), 1)
+        ratio = self._ref_ratio(n_kfs)
+        c1a = since >= cfg.max_frames_between_kf
+        c1b = since >= max(cfg.min_frames_between_kf, cfg.kf_idle_frames)
+        c1c = cfg.sensor != "mono" and (n_inl < 0.25 * n_ref or need_close)
+        c2 = (n_inl < ratio * n_ref or need_close) and n_inl > cfg.min_inliers_kf
+        # redundancy veto: the census of _need_kf_fast
+        if c2 and not need_close and not c1a and n_inl >= cfg.kf_strong_inl:
+            if self._red_cum is None:
+                self._red_cum = ms.obs_level_cum(self.map, cfg.frontend.n_levels)
+            n_red, n_trk = _frame_redundancy(self._red_cum, res.obs_point, feats.level)
+            if int(n_red) / max(int(n_trk), 1) >= cfg.kf_redundancy_th:
+                c2 = False
+        return bool((c1a or c1b or c1c) and c2)
+
+    def _insert_keyframe(self, feats, res: tr.TrackResult):
+        """Synchronous keyframe insertion and the local-mapping pass, stage
+        by stage (the twin of ``_insert_and_map``)."""
+        cfg = self.cfg
+        fcfg = cfg.frontend
+        self._ensure_capacity()
+        # NOT res.obs_point: _ensure_capacity may have compacted the point
+        # pool and remapped every point id; self.prev_obs was set to
+        # res.obs_point by _track and remapped with the rest
+        self.map, slot = ms.insert_keyframe(
+            self.map, self.T_cw, self.frame_id, feats.uv_und, feats.ur, feats.level,
+            feats.angle, feats.desc, feats.valid, self.prev_obs, self.ref_kf,
+        )
+        self.ref_kf = int(slot)
+        self.ref_kf_matches = int(res.n_inliers)
+        self.last_kf_frame = self.frame_id
+        self.n_kfs_created += 1
+        bf = float(fcfg.bf)
+        if cfg.sensor in ("stereo", "rgbd"):
+            self.map = _create_depth_points(self.map, slot, feats, self._K, bf,
+                                            fcfg.depth_th)
+        # --- local mapping pipeline (LocalMapping::Run order) ---
+        dims = dict(n_levels=fcfg.n_levels, scale=fcfg.scale_factor)
+        self.map = lm.cull_points(self.map)
+        self.map, _ = lm.create_new_points(self.map, slot, self._K, bf, **dims)
+        # stats BEFORE fuse: fresh points need real scale bands
+        self.map = ms.update_point_stats(self.map, self._sf)
+        self.map = lm.fuse_neighbors(self.map, slot, self._K, height=fcfg.height,
+                                     width=fcfg.width, **dims)
+        self.map = ms.update_point_stats(self.map, self._sf)
+        self.map, _ = lm.run_local_ba(self.map, slot, self._K, bf, self._inv_sigma2,
+                                      window=cfg.local_ba_window)
+        self.map = lm.cull_keyframes(self.map, slot, None, n_levels=fcfg.n_levels)
+        # adopt the BA-refined pose and the surviving observations
+        self.T_cw = self.map.kf_pose[self.ref_kf]
+        self.prev_obs = self.map.kf_obs_point[self.ref_kf]
+        self._refresh_host_counters()
+
+    # ------------------------------------------------------------------
+    # capacity
+    # ------------------------------------------------------------------
+
+    def _ensure_capacity(self):
+        """Never stop mapping at pool capacity. Point pool: compact culled
+        slots first (``map_state.compact_points``); when genuinely full,
+        double the pool. Keyframe pool: compact when culling freed enough
+        slots, else double. Each event is counted; a doubling is announced
+        on stderr."""
+        m = self.map
+        P = m.pt_pos.shape[0]
+        N = self.cfg.map.n_features
+        # each keyframe can allocate up to ~2N rows (depth spawn + triangulation)
+        if P - int(m.n_pt) < 3 * N:
+            old_valid = m.pt_valid
+            n_valid = int(old_valid.sum())
+            if P - n_valid >= max(3 * N, P // 8):
+                self.map, new_idx = ms.compact_points(m)
+                self.n_point_compactions += 1
+                self._remap_point_ids(new_idx, old_valid)
+            else:
+                print(f"[orbslam2-torch] point pool full ({n_valid}/{P} live): "
+                      f"growing to {2 * P}", file=sys.stderr, flush=True)
+                self.map = ms.grow_map(m, new_P=2 * P)
+                self.n_point_growths += 1
+        K = self.map.kf_valid.shape[0]
+        n_kf = int(self.map.n_kf)
+        if K - n_kf < 2:
+            n_live = int(self.map.kf_valid.sum())
+            if n_kf - n_live >= max(8, K // 4):
+                # culling freed plenty of slots: compact instead of growing
+                self._compact_keyframes()
+                self.n_kf_compactions += 1
+            else:
+                print(f"[orbslam2-torch] keyframe pool full ({n_live}/{K} live): "
+                      f"growing to {2 * K}", file=sys.stderr, flush=True)
+                self.map = ms.grow_map(self.map, new_K=2 * K)
+                self.n_kf_growths += 1
+        # pool shapes or point ids may have changed: the redundancy
+        # histogram is recomputed lazily from the new map
+        self._red_cum = None
+
+    def _compact_keyframes(self):
+        """Pack valid keyframes to the low end of the pool. Every keyframe
+        id held OUTSIDE the MapState is re-anchored first: trajectory
+        entries and point reference keyframes walk the spanning tree past
+        culled slots (the SaveTrajectoryTUM walk) to a live ancestor, then
+        all ids are remapped. The walks run on the host in numpy."""
+        m = self.map
+        K = m.kf_valid.shape[0]
+        kf_valid = m.kf_valid.cpu().numpy()
+        parent = m.kf_parent.cpu().numpy()
+        tcp = m.kf_tcp.cpu().numpy()
+
+        # live ancestor + folded T_slot_ancestor for every slot
+        anc = np.arange(K)
+        fold = [None] * K  # None = identity
+        for s in range(K):
+            r, F, hops = s, None, 0
+            while 0 <= r < K and not kf_valid[r] and parent[r] >= 0 and hops < K:
+                F = tcp[r] if F is None else _np_se3_compose(F, tcp[r])
+                r = int(parent[r])
+                hops += 1
+            anc[s] = r if (0 <= r < K and kf_valid[r]) else -1
+            fold[s] = F
+
+        order = np.argsort(np.where(kf_valid, 0, 1), kind="stable")
+        new_idx = np.cumsum(kf_valid.astype(np.int32)) - 1
+        new_idx = np.where(kf_valid, new_idx, -1).astype(np.int32)
+
+        def live(slot):
+            a = anc[slot] if 0 <= slot < K else -1
+            return int(new_idx[a]) if a >= 0 else -1
+
+        # 1. trajectory entries: fold culled anchors into T_rel
+        kf_pose = m.kf_pose.cpu().numpy()
+        fixed = []
+        for fid, ts, ref, T_rel in self.trajectory:
+            r = int(ref)
+            if 0 <= r < K and not kf_valid[r] and fold[r] is not None:
+                T_rel = _np_se3_compose(np.asarray(T_rel), fold[r])
+            lr = live(r)
+            if lr < 0:
+                # the whole ancestor chain is culled (rare: slot 0 is
+                # protected): re-anchor on slot 0 preserving the absolute
+                # pose, T_rel' = T_rel . pose[dead_end] . inv(pose[0])
+                dead_end, hops = r, 0
+                while (0 <= dead_end < K and not kf_valid[dead_end]
+                       and parent[dead_end] >= 0 and hops < K):
+                    dead_end = int(parent[dead_end])
+                    hops += 1
+                if 0 <= dead_end < K:
+                    T_rel = _np_se3_compose(
+                        _np_se3_compose(np.asarray(T_rel), kf_pose[dead_end]),
+                        _np_se3_inverse(kf_pose[0]))
+                lr = 0
+            fixed.append((fid, ts, lr, np.asarray(T_rel)))
+        self.trajectory = fixed
+
+        # 2. point reference keyframes -> live ancestors, so that
+        #    compact_keyframes' id remap is valid
+        first = m.pt_first_kf.cpu().numpy()
+        ok_f = (first >= 0) & (first < K)
+        first_live = np.where(ok_f, anc[np.clip(first, 0, K - 1)], -1).astype(np.int32)
+        m = m._replace(pt_first_kf=torch.as_tensor(first_live, device=self.device))
+
+        # 3. compact the MapState arrays
+        self.map = ms.compact_keyframes(
+            m, torch.as_tensor(order, device=self.device),
+            torch.as_tensor(new_idx, device=self.device))
+
+        # 4. host-held ids (a pipelined frame's "ref_kf" only reaches the
+        #    trajectory, and the pipeline is drained before a compaction)
+        self.ref_kf = max(live(self.ref_kf), 0)
+
+    def _remap_point_ids(self, new_idx, old_valid):
+        """Point-id fixup after ``compact_points`` for the ids held outside
+        the MapState: the last frame's observations, the pipelined frame and
+        the frame awaiting insertion."""
+        P = old_valid.shape[0]
+
+        def remap(obs):
+            oc = torch.clamp(obs.to(torch.int64), 0, P - 1)
+            ok = (obs >= 0) & old_valid[oc]
+            return torch.where(ok, new_idx[oc], -1).to(torch.int32)
+
+        self.prev_obs = remap(self.prev_obs)
+        if self._pend is not None:
+            self._pend["obs"] = remap(self._pend["obs"])
+        for holder in self._extra_obs_holders:
+            holder["obs"] = remap(holder["obs"])
 
     # ------------------------------------------------------------------
     # initialization
@@ -474,6 +880,31 @@ class System:
         self.state = self.OK
         self._refresh_host_counters()
 
+    def _depth_init(self, feats):
+        """StereoInitialization: the first frame with >= 500 features
+        becomes keyframe 0, and every keypoint with a depth spawns a point."""
+        if int(feats.valid.sum()) < 500:
+            return
+        dev = self.device
+        N = feats.uv.shape[0]
+        self.map, s0 = ms.insert_keyframe(
+            self.map, lie.se3_identity(device=dev), self.frame_id, feats.uv_und,
+            feats.ur, feats.level, feats.angle, feats.desc, feats.valid,
+            torch.full((N,), -1, dtype=torch.int32, device=dev), -1,
+        )
+        s0 = int(s0)
+        self.map = _create_depth_points(self.map, s0, feats, self._K,
+                                        float(self.cfg.frontend.bf), 1e9)
+        self.map = ms.update_point_stats(self.map, self._sf)
+        self.T_cw = lie.se3_identity(device=dev)
+        self.prev_obs = self.map.kf_obs_point[s0]
+        self.ref_kf = s0
+        self.ref_kf_matches = int((self.prev_obs >= 0).sum())
+        self.last_kf_frame = self.frame_id
+        self.init_frame_id = self.frame_id
+        self.state = self.OK
+        self._refresh_host_counters()
+
     # ------------------------------------------------------------------
 
     def _record(self, timestamp):
@@ -505,23 +936,67 @@ class System:
         return out
 
 
+def _np_se3_compose(a7, b7):
+    """Host-side se3_compose (mat(A) @ mat(B)) for the compaction walks."""
+    return metrics.mat_to_se3_vec(
+        metrics.se3_vec_to_mat(np.asarray(a7)) @ metrics.se3_vec_to_mat(np.asarray(b7)))
+
+
+def _np_se3_inverse(a7):
+    """Host-side se3_inverse, the counterpart of ``_np_se3_compose``."""
+    return metrics.mat_to_se3_vec(np.linalg.inv(metrics.se3_vec_to_mat(np.asarray(a7))))
+
+
+def _bump_stats(m: ms.MapState, visible, found):
+    """Tracking's visible / found counters; the other fields keep their
+    tensor identity, which the observation-matrix cache relies on."""
+    return m._replace(pt_visible=m.pt_visible + visible.to(torch.int32),
+                      pt_found=m.pt_found + found.to(torch.int32))
+
+
+def _frame_redundancy(red_cum, obs, level):
+    """(n_redundant, n_tracked) of a frame's observation row against the
+    per-point obs-level histogram: tracked points already observed >= 3
+    times at octave <= own + 1 (the KeyFrameCulling criterion, per frame)."""
+    P, L = red_cum.shape
+    lvl_gate = torch.clamp(torch.clamp(level.to(torch.int64), 0, L - 1) + 1, max=L - 1)
+    n_oth = red_cum[torch.clamp(obs.to(torch.int64), 0, P - 1), lvl_gate]
+    tracked = obs >= 0
+    return torch.sum(tracked & (n_oth >= 3.0)), torch.sum(tracked)
+
+
+def _close_census(fcfg: fe.FrontendConfig, feats, obs):
+    """(tracked, untracked) counts of the frame's close keypoints (depth
+    below depth_th baselines): the stereo / RGB-D keyframe decision's input."""
+    close_th = fcfg.depth_th * fcfg.bf / max(fcfg.fx, 1e-6)
+    close = feats.valid & (feats.depth > 0) & (feats.depth < close_th)
+    return torch.sum(close & (obs >= 0)), torch.sum(close & (obs < 0))
+
+
 # ---------------------------------------------------------------------------
 # device programs
 # ---------------------------------------------------------------------------
 
-def _frame_step(m: ms.MapState, obs_A, img, T_cw, velocity, prev_obs, ref_kf,
-                ref_anchor, red_cum, fcfg: fe.FrontendConfig, min_inl: int,
-                n_local_kf: int, n_local_pt: int):
-    """The whole per-frame hot path: extraction, both matching passes and
-    pose optimizations, tracking-stat bumps, the keyframe-decision census
-    and the trajectory anchor. Nothing in it reads back to the host.
+def _frame_step(m: ms.MapState, obs_A, img, aux_img, T_cw, velocity, prev_obs,
+                ref_kf, ref_anchor, red_cum, fcfg: fe.FrontendConfig, sensor: str,
+                min_inl: int, n_local_kf: int, n_local_pt: int,
+                depth_factor: float = 1.0):
+    """The whole per-frame hot path: extraction (with the depth lookup or
+    the stereo match from ``aux_img``), both matching passes and pose
+    optimizations, tracking-stat bumps, the keyframe-decision censuses and
+    the trajectory anchor. Nothing in it reads back to the host.
 
     Returns (feats, T_new, vel_new, obs_new, pt_visible, pt_found,
     stats[19], T_ref_now) with stats = [n_inliers, n_matches,
-    n_close_tracked, n_close_untracked (0 for mono), T_new(7), T_rel(7),
-    n_redundant]."""
+    n_close_tracked, n_close_untracked (both 0 for mono), T_new(7),
+    T_rel(7), n_redundant]."""
     dev = m.pt_pos.device
-    feats = fe.extract_mono(fcfg, img)
+    if sensor == "mono":
+        feats = fe.extract_mono(fcfg, img)
+    elif sensor == "rgbd":
+        feats = fe.extract_rgbd(fcfg, img, aux_img.to(torch.float32) * depth_factor)
+    else:
+        feats = fe.extract_stereo(fcfg, img, aux_img)
     # re-anchor on the reference keyframe: any refinement of its pose since
     # the chain last saw it (local BA) moves the live pose along
     T_ref_now = m.kf_pose[ref_kf]
@@ -541,25 +1016,25 @@ def _frame_step(m: ms.MapState, obs_A, img, T_cw, velocity, prev_obs, ref_kf,
     pt_visible = m.pt_visible + (res.visible_pt & ok).to(torch.int32)
     pt_found = m.pt_found + (res.found_pt & ok).to(torch.int32)
 
-    # redundancy census: tracked points already observed >= 3 times at
-    # octave <= own + 1 (the KeyFrameCulling criterion, per frame)
-    P, L = red_cum.shape
-    lvl_gate = torch.clamp(torch.clamp(feats.level.to(torch.int64), 0, L - 1) + 1, max=L - 1)
-    n_oth = red_cum[torch.clamp(obs_new.to(torch.int64), 0, P - 1), lvl_gate]
-    n_red = torch.sum((obs_new >= 0) & (n_oth >= 3.0)).to(torch.float32)
+    if sensor in ("stereo", "rgbd"):
+        n_tc, n_nc = _close_census(fcfg, feats, obs_new)
+    else:
+        n_tc = n_nc = torch.zeros((), device=dev)
+    n_red = _frame_redundancy(red_cum, obs_new, feats.level)[0]
 
     T_rel = lie.se3_compose(T_new, lie.se3_inverse(T_ref_now))
     stats = torch.cat([
-        torch.stack([res.n_inliers.to(torch.float32), res.n_matches.to(torch.float32)]),
-        torch.zeros(2, device=dev), T_new, T_rel, n_red[None],
+        torch.stack([c.to(torch.float32) for c in (res.n_inliers, res.n_matches, n_tc, n_nc)]),
+        T_new, T_rel, n_red.to(torch.float32)[None],
     ])
     return feats, T_new, vel_new, obs_new, pt_visible, pt_found, stats, T_ref_now
 
 
 def _insert_and_map(m: ms.MapState, feats, T_cw, frame_id, parent, obs_row, protect,
-                    inv_sigma2, fcfg: fe.FrontendConfig, window: int):
-    """Keyframe insertion + the whole LocalMapping pass (cull points,
-    triangulate, stats, fuse, stats, local BA, cull keyframes).
+                    inv_sigma2, fcfg: fe.FrontendConfig, sensor: str, window: int):
+    """Keyframe insertion + the whole LocalMapping pass (depth points for
+    stereo / RGB-D, cull points, triangulate, stats, fuse, stats, local BA,
+    cull keyframes).
 
     Returns (m2, aux[7], red_cum) with aux = [n_new_points, n_pt,
     n_ref_minobs2, n_ref_minobs3, n_kf_live, n_pt_live, culled_slot or -1]
@@ -572,6 +1047,8 @@ def _insert_and_map(m: ms.MapState, feats, T_cw, frame_id, parent, obs_row, prot
         m, T_cw, frame_id, feats.uv_und, feats.ur, feats.level, feats.angle,
         feats.desc, feats.valid, obs_row, parent,
     )
+    if sensor in ("stereo", "rgbd"):
+        m = _create_depth_points(m, slot, feats, Kc, bf, fcfg.depth_th)
     m = lm.cull_points(m)
     # covisibility built twice per pass, as the reference's
     # UpdateConnections (ProcessNewKeyFrame and after SearchInNeighbors)
@@ -602,3 +1079,23 @@ def _insert_and_map(m: ms.MapState, feats, T_cw, frame_id, parent, obs_row, prot
         culled.to(torch.float32),
     ])
     return m, aux, ms.obs_level_cum(m, fcfg.n_levels)
+
+
+def _create_depth_points(m: ms.MapState, kf_id, feats, Kc, bf, depth_th):
+    """Spawn map points from stereo / RGB-D depth for the keyframe's
+    unmatched keypoints closer than ``depth_th`` baselines
+    (StereoInitialization and CreateNewKeyFrame). ``kf_id`` is an int or a
+    device scalar."""
+    dev = m.pt_pos.device
+    N = feats.uv.shape[0]
+    k = torch.as_tensor(kf_id, device=dev).to(torch.int64).reshape(1)
+    th = torch.full((), depth_th, dtype=torch.float32, device=dev) * bf \
+        / torch.clamp(Kc[0], min=1e-6)
+    want = (feats.valid & (feats.depth > 0) & (feats.depth < th)
+            & (m.kf_obs_point[k][0] < 0))
+    pc = camera.backproject(Kc, feats.uv_und, feats.depth)
+    pw = lie.se3_apply(lie.se3_inverse(m.kf_pose[k][0]), pc)
+    m2, pids = ms.insert_points(m, pw, feats.desc, k.to(torch.int32).expand(N), want)
+    obs = m2.kf_obs_point.clone()
+    obs[k] = torch.where(pids >= 0, pids.to(torch.int32), obs[k][0])[None]
+    return m2._replace(kf_obs_point=obs)

@@ -22,6 +22,14 @@ def project(K, p_cam):
     return torch.stack([u, v], dim=-1), z
 
 
+def backproject(K, uv, z):
+    """Pixel + depth -> camera-frame 3D point."""
+    fx, fy, cx, cy = K[..., 0], K[..., 1], K[..., 2], K[..., 3]
+    x = (uv[..., 0] - cx) * z / fx
+    y = (uv[..., 1] - cy) * z / fy
+    return torch.stack([x, y, z], dim=-1)
+
+
 def distort_normalized(dist, xn):
     """Apply radial-tangential distortion to normalized coords [..., 2]."""
     k1, k2, p1, p2, k3 = (dist[..., i] for i in range(5))

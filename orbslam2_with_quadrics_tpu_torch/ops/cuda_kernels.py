@@ -98,7 +98,7 @@ def _q_per_block(n_rows: int, n_sm: int) -> int:
 
 def masked_hamming_best2_plain(qdesc, quv, qrad, qlvl, qvalid,
                                tdesc, tuv, tlvl, tvalid, level_tol: int = 1):
-    """Plain PyTorch version: byte-LUT Hamming matrix + ``best_two``.
+    """Plain PyTorch version: XOR + popcount Hamming matrix + ``best_two``.
     Queries [Q, ...] or [B, Q, ...]; targets [N, ...] (shared by the batch)
     or [B, N, ...]."""
     from .matching import best_two, hamming_matrix

@@ -11,7 +11,6 @@ Descriptors are [.., 8] int32 views of the 256-bit uint32 words.
 
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
@@ -25,28 +24,25 @@ HISTO_LENGTH = 30
 
 _BIG = 1 << 20
 _INT32_MAX = 2147483647
-# rows per chunk of the [rows, Nb, 32] byte-LUT gather (bounds its memory)
-_LUT_ELEMS = 1 << 24
-
-
-@functools.lru_cache(maxsize=8)
-def _popcount_lut(device: str):
-    return torch.tensor([bin(i).count("1") for i in range(256)],
-                        dtype=torch.int32, device=device)
+# bytes per chunk of hamming_matrix's [rows, Nb, 8] int32 XOR (bounds the
+# memory of its temporaries)
+_CHUNK_BYTES = 1 << 24
 
 
 def popcount_words(x):
-    """[..., W] int32 -> [...] int32: total set bits over the last axis,
-    through a 256-entry byte table on the int32 words' bytes."""
-    lut = _popcount_lut(str(x.device))
-    b = x.contiguous().view(torch.uint8).to(torch.int64)
-    return lut[b].sum(dim=-1, dtype=torch.int32)
+    """[..., W] int32 -> [...] int32: total set bits over the last axis, by
+    bit arithmetic on the words (pairs, nibbles, bytes, then one multiply
+    sums the four bytes; the shifts are arithmetic, so each is masked)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return (((x * 0x01010101) >> 24) & 0xFF).sum(dim=-1, dtype=torch.int32)
 
 
 def hamming_matrix(desc_a, desc_b):
     """[Na,8] x [Nb,8] int32 -> [Na,Nb] int32 Hamming distances."""
     na, nb = desc_a.shape[0], desc_b.shape[0]
-    step = max(1, _LUT_ELEMS // max(32 * nb, 1))
+    step = max(1, _CHUNK_BYTES // max(32 * nb, 1))
     out = [
         popcount_words(desc_a[i: i + step, None, :] ^ desc_b[None, :, :])
         for i in range(0, na, step)

@@ -67,3 +67,30 @@ def se3_vec_to_mat(T7: np.ndarray) -> np.ndarray:
     M[:3, :3] = R
     M[:3, 3] = T7[4:7]
     return M
+
+
+def rotation_to_quat(R):
+    """Rotation matrix -> (qx, qy, qz, qw), TUM order."""
+    tr = np.trace(R)
+    if tr > 0:
+        s = np.sqrt(tr + 1.0) * 2
+        return ((R[2, 1] - R[1, 2]) / s, (R[0, 2] - R[2, 0]) / s,
+                (R[1, 0] - R[0, 1]) / s, 0.25 * s)
+    i = int(np.argmax(np.diag(R)))
+    if i == 0:
+        s = np.sqrt(1.0 + R[0, 0] - R[1, 1] - R[2, 2]) * 2
+        return (0.25 * s, (R[0, 1] + R[1, 0]) / s, (R[0, 2] + R[2, 0]) / s,
+                (R[2, 1] - R[1, 2]) / s)
+    if i == 1:
+        s = np.sqrt(1.0 - R[0, 0] + R[1, 1] - R[2, 2]) * 2
+        return ((R[0, 1] + R[1, 0]) / s, 0.25 * s, (R[1, 2] + R[2, 1]) / s,
+                (R[0, 2] - R[2, 0]) / s)
+    s = np.sqrt(1.0 - R[0, 0] - R[1, 1] + R[2, 2]) * 2
+    return ((R[0, 2] + R[2, 0]) / s, (R[1, 2] + R[2, 1]) / s, 0.25 * s,
+            (R[1, 0] - R[0, 1]) / s)
+
+
+def mat_to_se3_vec(M: np.ndarray) -> np.ndarray:
+    """4x4 -> [7] quat (w first) + trans, float32 (host-side, numpy)."""
+    qx, qy, qz, qw = rotation_to_quat(M[:3, :3])
+    return np.concatenate([[qw, qx, qy, qz], M[:3, 3]]).astype(np.float32)

@@ -208,3 +208,60 @@ def _rot_x(a):
 def _rot_z(a):
     c, s = np.cos(a), np.sin(a)
     return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+
+
+def stereo_right_pose(T_cw, baseline):
+    """Right-camera pose for a rectified pair: the right camera sits at +b
+    along the left camera's x-axis, so t_r = t_l - (b,0,0)."""
+    T = T_cw.copy()
+    T[0, 3] -= baseline
+    return T
+
+
+def planar_sequence_stereo(
+    n_frames=40, h=240, w=320, fx=260.0, fy=260.0, baseline=0.1, seed=0,
+    motion="strafe", relief=False,
+):
+    """Stereo version: returns (imgs_l, imgs_r, poses, K)."""
+    imgs_l, poses, K = planar_sequence(
+        n_frames=n_frames, h=h, w=w, fx=fx, fy=fy, seed=seed, motion=motion,
+        relief=relief,
+    )
+    tex = _texture(2048, seed)
+    relief_tex = _texture(512, seed + 77) if relief else None
+    K3 = np.array([[K[0], 0, K[2]], [0, K[1], K[3]], [0, 0, 1.0]])
+    imgs_r = np.stack(
+        [render_plane(tex, stereo_right_pose(T, baseline), K3, h, w,
+                      relief_tex=relief_tex) for T in poses]
+    )
+    return imgs_l, imgs_r, poses, K
+
+
+def planar_depth(pose_T_cw, K, h, w, relief=False, relief_half=1.2,
+                 relief_z=0.8):
+    """Exact depth map of the scene for RGB-D runs: the z=0 plane plus,
+    with ``relief=True``, the raised platform the renderers draw (the depth
+    image must agree pixel for pixel with the rendered frame)."""
+    R = pose_T_cw[:3, :3]
+    t = pose_T_cw[:3, 3]
+    fx, fy, cx, cy = K
+    ys, xs = np.mgrid[0:h, 0:w]
+    rays = np.stack(
+        [(xs - cx) / fx, (ys - cy) / fy, np.ones_like(xs, np.float64)], axis=-1
+    )
+    # world ray dir = R^T d, origin C = -R^T t; the hit's camera-frame z
+    d_w = rays @ R
+    C = -R.T @ t
+    dz = np.where(np.abs(d_w[..., 2]) < 1e-9, 1e-9, d_w[..., 2])
+    lam = (0.0 - C[2]) / dz
+    depth = np.where(lam > 0, lam, 0.0)
+    if relief:
+        lam_r = (relief_z - C[2]) / dz
+        hit = C[None, None, :] + lam_r[..., None] * d_w
+        on_platform = (
+            (lam_r > 0)
+            & (np.abs(hit[..., 0]) <= relief_half)
+            & (np.abs(hit[..., 1]) <= relief_half)
+        )
+        depth = np.where(on_platform, lam_r, depth)
+    return depth.astype(np.float32)

@@ -1,10 +1,11 @@
-"""Per-stage profile of the port's monocular main path on one CUDA card.
+"""Per-stage profile of one of the port's paths on one CUDA card.
 
-    python3 profile_port.py [--frames 60] [--warmup 20] [--profiled 12]
+    python3 profile_port.py [--path mono|rgbd|stereo] [--frames N]
+                            [--warmup 20] [--profiled 12]
 
-Runs ``chip_smoke.py``'s main-path configuration (640x480, 1024 features,
-8 levels, default map pools, ``planar_sequence(seed=3)``, map on ``cuda``)
-through ``System.track_monocular`` in three windows:
+Runs one of ``chip_smoke.PATHS`` (mono: 640x480, 1024 features, 8 levels,
+default map pools, 60 frames; stereo: 1226x370, 2048 features, 30 frames;
+map on ``cuda``) through ``System.track_*`` in three windows:
 
 1. frames ``[0, warmup)`` run without instrumentation (initialization,
    the kernel build, allocator warm-up);
@@ -18,8 +19,8 @@ through ``System.track_monocular`` in three windows:
    after every stage: host ms per stage call (a nested stage's time is
    inside its parent's).
 
-Prints both tables and writes ``chiprun_out/profile/summary.json`` and
-``chiprun_out/profile/key_averages.txt``.
+Prints both tables and writes ``chiprun_out/profile/summary_<path>.json`` and
+``chiprun_out/profile/key_averages_<path>.txt``.
 """
 
 from __future__ import annotations
@@ -45,17 +46,20 @@ from orbslam2_with_quadrics_tpu_torch.models import map_state as ms  # noqa: E40
 from orbslam2_with_quadrics_tpu_torch.models import system as sysm  # noqa: E402
 from orbslam2_with_quadrics_tpu_torch.models import tracking as tr  # noqa: E402
 from orbslam2_with_quadrics_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
-from orbslam2_with_quadrics_tpu_torch.ops import matching, orb  # noqa: E402
+from orbslam2_with_quadrics_tpu_torch.ops import matching, orb, stereo  # noqa: E402
 
 # the stages, from the per-frame / per-keyframe programs down; each is
 # looked up through its module at call time, so patching the module
 # attribute instruments every caller
 STAGES = [
-    (sysm, "_frame_step"), (fe, "extract_mono"), (orb, "build_pyramid"),
+    (sysm, "_frame_step"), (fe, "extract_stereo"), (fe, "extract_rgbd"),
+    (fe, "extract_mono"), (orb, "extract"), (stereo, "stereo_match"),
+    (matching, "hamming_matrix"), (orb, "build_pyramid"),
     (orb, "detect_level"), (tr, "track_frame"), (tr, "select_local_points"),
     (tr, "_pose_opt_from_obs"), (matching, "match_by_projection"),
     (ck, "masked_hamming_best2"),
-    (sysm, "_insert_and_map"), (lm, "cull_points"), (lm, "create_new_points"),
+    (sysm, "_insert_and_map"), (sysm, "_create_depth_points"), (lm, "cull_points"),
+    (lm, "create_new_points"),
     (lm, "fuse_neighbors"), (lm, "run_local_ba"), (lm, "cull_keyframes"),
     (ms, "update_point_stats"), (ms, "covisibility"), (ms, "observation_matrix"),
     (ms, "obs_level_cum"),
@@ -129,8 +133,11 @@ def analyse(prof, wall_ms, n_frames):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--frames", type=int, default=60)
-    ap.add_argument("--warmup", type=int, default=20)
+    ap.add_argument("--path", choices=("mono", "rgbd", "stereo"), default="mono")
+    ap.add_argument("--frames", type=int, default=None,
+                    help="default: the path's own count in chip_smoke.PATHS")
+    ap.add_argument("--warmup", type=int, default=None,
+                    help="default: a third of the frames")
     ap.add_argument("--profiled", type=int, default=12)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -143,47 +150,56 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"[env] torch {torch.__version__}; {smi}", flush=True)
 
-    cfg, imgs, poses = chip_smoke.main_path_setup(n_frames=args.frames)
+    spec = {k: v for k, v in chip_smoke.PATHS[args.path].items()
+            if k not in ("min_tracked", "min_kf", "ate_max", "metric", "scale_free")}
+    if args.frames is not None:
+        spec["n_frames"] = args.frames
+    args.frames = spec["n_frames"]
+    if args.warmup is None:
+        args.warmup = args.frames // 3
+    cfg, frames, poses = chip_smoke.main_path_setup(**spec)
     mode, host_ms = {"m": None}, {}
     originals = instrument(mode, host_ms)
-    p0, p1 = args.warmup, args.warmup + args.profiled
+    p0, p1 = args.warmup, min(args.warmup + args.profiled, args.frames)
     try:
         slam = sysm.System(cfg)
+        step = getattr(slam, {"mono": "track_monocular", "rgbd": "track_rgbd",
+                              "stereo": "track_stereo"}[cfg.sensor])
         for i in range(p0):
-            slam.track_monocular(imgs[i], timestamp=i / 30.0)
+            step(*frames[i], timestamp=i / 30.0)
         torch.cuda.synchronize()
         mode["m"] = "profile"
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
             for i in range(p0, p1):
-                slam.track_monocular(imgs[i], timestamp=i / 30.0)
+                step(*frames[i], timestamp=i / 30.0)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t) * 1e3
         mode["m"] = "sync"
         for i in range(p1, args.frames):
-            slam.track_monocular(imgs[i], timestamp=i / 30.0)
+            step(*frames[i], timestamp=i / 30.0)
         mode["m"] = None
         traj = slam.full_trajectory()
     finally:
         restore(originals)
 
-    ate, span = chip_smoke.trajectory_error(traj, poses)
+    ate, span = chip_smoke.trajectory_error(traj, poses, with_scale=cfg.sensor == "mono")
     tracked = sum(1 for m in slam.metrics if not m.get("lost"))
     summary = analyse(prof, wall_ms, p1 - p0)
     summary.update({
-        "card": smi, "torch": torch.__version__, "tracked": tracked,
+        "path": args.path, "card": smi, "torch": torch.__version__, "tracked": tracked,
         "n_kf": int(slam.map.n_kf), "ate": ate, "span": span,
         "stage_host_ms_synced": {k: {"calls": len(v), "median": float(np.median(v))}
                                  for k, v in host_ms.items()},
     })
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:
+    with open(os.path.join(OUT_DIR, f"summary_{args.path}.json"), "w") as f:
         json.dump(summary, f, indent=1)
-    with open(os.path.join(OUT_DIR, "key_averages.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, f"key_averages_{args.path}.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=80))
 
-    print(f"[run] tracked {tracked}/{args.frames}, keyframes {summary['n_kf']}, "
+    print(f"[run] path {args.path}: tracked {tracked}/{args.frames}, keyframes {summary['n_kf']}, "
           f"ATE {ate:.5f} over span {span:.4f}")
     print(f"[profile] frames {p0}-{p1 - 1}: wall {wall_ms:.1f} ms, device busy "
           f"{summary['device_busy_ms']:.1f} ms ({100 * summary['device_busy_share']:.1f}%), "

@@ -296,3 +296,56 @@ def test_stage_a_two_radii_one_launch_on_card(cuda_device):
         one = ck.masked_hamming_best2(case[0], case[1], q[2][b].contiguous(), *case[3:])
         for g, o in zip(got, one):
             assert torch.equal(g[b], o)
+
+
+# the stereo path's shapes: 2048 features, two 1024-target chunks per warp
+STEREO_CASES = {
+    "stage_a_B2_2048x2048_shared": dict(B=2, Q=2048, N=2048, shared_targets=True),
+    "stage_b_4096x2048": dict(B=1, Q=4096, N=2048, shared_targets=True),
+    "fuse_fwd_B10_2048x2048": dict(B=10, Q=2048, N=2048, shared_targets=False),
+    "fuse_rev_B10_2048x2048_shared": dict(B=10, Q=2048, N=2048, shared_targets=True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(STEREO_CASES))
+def test_kernel_matches_plain_at_stereo_shapes_on_card(cuda_device, name):
+    kw = dict(STEREO_CASES[name])
+    _, batch = make_batch(kw.pop("B"), kw.pop("Q"), kw.pop("N"), seed=7, **kw)
+    args = to_torch(batch, cuda_device)
+    before = ck.LAUNCHES["masked_hamming_best2"]
+    got = ck.masked_hamming_best2(*args)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["masked_hamming_best2"] == before + 1
+    ref = ck.masked_hamming_best2_plain(*args)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+def test_default_device_rgbd_system_tracks_on_card(cuda_device):
+    """``System(sensor="rgbd")`` with a default ``MapConfig`` keeps its map on
+    the card, initializes from the first frame and tracks through the
+    kernel: at most 2 launches per tracked frame and 2 per mapping pass."""
+    from orbslam2_with_quadrics_tpu_torch.models import frontend as fe
+    from orbslam2_with_quadrics_tpu_torch.models import map_state as ms
+    from orbslam2_with_quadrics_tpu_torch.models import system as sysm
+    from orbslam2_with_quadrics_tpu_torch.utils import synthetic
+
+    h, w, fx, n = 240, 320, 260.0, 12
+    imgs, poses, K = synthetic.planar_sequence(n_frames=n, h=h, w=w, fx=fx, fy=fx, seed=3)
+    cfg = sysm.SystemConfig(
+        frontend=fe.FrontendConfig(height=h, width=w, n_features=512, n_levels=4, fx=fx,
+                                   fy=fx, cx=w / 2, cy=h / 2, bf=0.1 * fx),
+        map=ms.MapConfig(max_keyframes=32, max_points=8192, n_features=512, n_levels=4),
+        sensor="rgbd", max_frames_between_kf=4)
+    assert cfg.map.device == "cuda"
+    slam = sysm.System(cfg)
+    ck.reset_launch_counts()
+    for i in range(n):
+        slam.track_rgbd(imgs[i], synthetic.planar_depth(poses[i], K, h, w), timestamp=i / 30.0)
+    slam.shutdown()
+    assert slam.map.pt_pos.is_cuda and slam.state == sysm.System.OK
+    assert slam.init_frame_id == 0 and len(slam.trajectory) == n
+    launches = ck.LAUNCHES["masked_hamming_best2"]
+    assert 0 < launches <= 2 * (n - 1) + 2 * slam.n_kfs_created
