@@ -15,10 +15,14 @@ Phases (any failure exits non-zero before the result line):
        plain_ms   the plain PyTorch version, timed like call_ms;
        bound_ms   the least time the card could take for this run's inputs
                   (see ``bound_ms``);
-  4. the port's paths through ``System``, every map tensor on the card, each
+  4. place recognition's plain-PyTorch ops (vocabulary descent, sparse BoW
+     and database sweep on the shipped vocabulary; Sim3 RANSAC and LM; EPnP
+     RANSAC) on the card against the same calls on the CPU, and their times;
+  5. the port's paths through ``System``, every map tensor on the card, each
      over a synthetic sequence, checked against ground truth, with the
      kernel's launch counts from that run alone (more than 0, at most 2 per
-     tracked frame and 2 per mapping pass):
+     tracked frame, 2 per mapping pass and 1 per mutual match, loop-point
+     projection and loop fuse):
        mono      ``track_monocular`` at the TUM width: 640x480, 1024 features,
                  8 levels, default map pools, 60 frames;
        rgbd      ``track_rgbd`` at the TUM width with TUM1.yaml's bf = 40 and
@@ -30,14 +34,28 @@ Phases (any failure exits non-zero before the result line):
        capacity  a mono run at 320x240 whose keyframe pool has 10 slots: the
                  pool must compact or double and the run end OK, once
                  through the pipelined path and once through the synchronous
-                 one (``ORB_SYNC_TRACK=1``).
+                 one (``ORB_SYNC_TRACK=1``);
+       reloc     the kidnap at the TUM width with the shipped 100k-word
+                 vocabulary: 30 frames with a keyframe every 2, 3 frames of
+                 white noise (LOST), then frames 16-25 again: ``_relocalize``
+                 must bring the state back to OK through the kernel;
+       loop      ``enable_loop_closing`` and ``async_gba`` at the TUM width,
+                 an 8-keyframe local window, 128 keyframe and 32,768 point
+                 slots, over one big orbit that leaves the start's view and
+                 returns (500 frames, sensor noise 3 grey levels): at least one
+                 loop closes, in the second half; ``shutdown()`` applies the
+                 background BA; ATE under 6% of the span. Each closure prints
+                 its four gates, the Sim3 scale and the time of every stage.
+The orbit's frames render in a worker process during the first phases.
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -178,6 +196,19 @@ def stage_a_case(seed, n=1024, **kw):
     return tuple(q) + one[5:]
 
 
+def mutual_case(n, seed, dev="cuda"):
+    """``matching.mutual_match``'s launch: a -> b and b -> a as a batch of
+    two, an infinite window and all levels 0, so every valid pair is admitted."""
+    a = hamming_case(n, n, seed, dev=dev)
+    desc = torch.stack([a[0], a[5]])
+    valid = torch.stack([a[4], a[8]])
+    uv = torch.zeros((2, n, 2), device=dev)
+    rad = torch.full((2, n), float("inf"), device=dev)
+    lvl = torch.zeros((2, n), dtype=torch.int32, device=dev)
+    return (desc, uv, rad, lvl, valid, desc.flip(0).contiguous(), uv, lvl,
+            valid.flip(0).contiguous())
+
+
 def kernel_cases():
     """[(name, inputs, timed)]: the cases held against the plain version;
     the timed ones are the main path's shapes."""
@@ -205,6 +236,16 @@ def kernel_cases():
         ("stereo-fuse-rev B=10 2048x2048",
          hamming_case(2048, 2048, 117, B=10, radius=3.0, shared_targets=True,
                       extent=KITTI), True),
+        # loop closing: the loop points into the current keyframe (radius
+        # 10), into its 13-keyframe covisible group (radius 4, per-entry
+        # targets), and the mutual match of two keyframes (both directions
+        # as a batch of two, every valid pair admitted)
+        ("loop-proj 4096x1024", hamming_case(4096, 1024, 118, radius=10.0), True),
+        ("loop-fuse B=13 4096x1024", hamming_case(4096, 1024, 119, B=13, radius=4.0), True),
+        ("loop-fuse B=13 4096x2048",
+         hamming_case(4096, 2048, 120, B=13, radius=4.0, extent=KITTI), True),
+        ("mutual B=2 1024x1024", mutual_case(1024, 121), True),
+        ("mutual B=2 2048x2048", mutual_case(2048, 122), True),
     ]
 
 
@@ -265,6 +306,21 @@ def phase_kernels(smi):
     b_all = bound_ms(wide, level_tol=8)
     log(f"[kernel] all-admitted 4096x1024: bit-exact, kernel_ms {k_all:.5f}, bound_ms "
         f"{b_all[0]:.5f} by {b_all[2]} ({smi})")
+    # matching.mutual_match on the card against itself on the CPU
+    from orbslam2_with_quadrics_tpu_torch.ops import matching
+    mc = mutual_case(1024, 123)
+    pair = (mc[0][0], mc[4][0], mc[0][1], mc[4][1])
+    before = ck.LAUNCHES["masked_hamming_best2"]
+    got = matching.mutual_match(*pair, ratio=0.95, th=matching.TH_HIGH + 20)
+    if ck.LAUNCHES["masked_hamming_best2"] != before + 1:
+        raise AssertionError("mutual_match on CUDA tensors must be one kernel launch")
+    ref = matching.mutual_match(*(t.cpu() for t in pair), ratio=0.95,
+                                th=matching.TH_HIGH + 20)
+    err = max_abs_diff([g.cpu() for g in got], ref)
+    log(f"[kernel] mutual_match 1024x1024 (card vs CPU plain): max |diff| = {err}, "
+        f"{int((ref[0] >= 0).sum())} mutual matches, 1 launch")
+    if err != 0:
+        raise AssertionError("mutual_match on the card disagrees with the CPU")
     # one query, one target: what a launch costs before any work is done
     tiny = hamming_case(1, 1, 113)
     log(f"[kernel] launch floor 1x1: kernel_ms "
@@ -274,6 +330,108 @@ def phase_kernels(smi):
     log(f"[kernel] main-B 4096x1024: torch.profiler by kernel name "
         f"{'no device events' if prof is None else f'{prof:.5f} ms per launch'} ({smi})")
     return max_err, times
+
+
+def wall_ms(fn, reps: int = 3) -> float:
+    """Median host time of ``fn`` with the device drained before and after:
+    what a host-bound stage costs its caller."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t))
+    return float(np.median(times))
+
+
+def phase_solvers(smi):
+    """Place recognition's plain-PyTorch ops (no TPU kernel stands behind
+    them) at the main path's shapes: each result on the card is held against
+    the same call on the CPU, then timed, for a later change to judge them."""
+    from orbslam2_with_quadrics_tpu_torch.models import system as sysm
+    from orbslam2_with_quadrics_tpu_torch.ops import camera, lie, pnp, sim3solver, vocab
+
+    g = torch.Generator().manual_seed(0)
+    n, n_kf = 1024, 256
+
+    def both(fn, *args):
+        return fn(*args), fn(*(a.cuda() if torch.is_tensor(a) else a for a in args))
+
+    # the shipped vocabulary: descent, sparse BoW, the database sweep
+    asset = sysm._default_vocab_asset()
+    voc_c, voc = vocab.load(asset), vocab.load(asset, device="cuda")
+    desc = torch.randint(-2 ** 31, 2 ** 31, (n_kf * n, 8), generator=g).to(torch.int32)
+    valid = torch.rand(n_kf * n, generator=g) < 0.9
+    (w_c, _), (w, _) = (vocab.transform(v, d, ok) for v, d, ok in
+                        ((voc_c, desc, valid), (voc, desc.cuda(), valid.cuda())))
+    if not torch.equal(w_c, w.cpu()):
+        raise AssertionError("vocabulary descent on the card disagrees with the CPU")
+    w = w.reshape(n_kf, n)
+    bows = [vocab.sparse_bow(row, voc.idf) for row in w]
+    wid, wval = torch.stack([b[0] for b in bows]), torch.stack([b[1] for b in bows])
+    live = torch.ones(n_kf, dtype=torch.bool)
+    sc_c, sc = both(vocab.sparse_l1_scores, wid.cpu(), wval.cpu(), wid[3].cpu(), wval[3].cpu(),
+                    live)
+    err = float((sc[0].cpu() - sc_c[0]).abs().max())
+    if err > 1e-5 or not torch.equal(sc[1].cpu(), sc_c[1]) or int(sc[0].argmax()) != 3:
+        raise AssertionError(f"database scores on the card disagree with the CPU ({err})")
+    d1, v1 = desc[:n].cuda(), valid[:n].cuda()
+    log(f"[solver] vocabulary {voc.n_words} words: transform (1024 descriptors) "
+        f"{wall_ms(lambda: vocab.transform(voc, d1, v1)):.3f} ms, sparse_bow "
+        f"{wall_ms(lambda: vocab.sparse_bow(w[0], voc.idf)):.3f} ms, sparse_l1_scores over "
+        f"{n_kf} keyframes {wall_ms(lambda: vocab.sparse_l1_scores(wid, wval, wid[3], wval[3], live.cuda())):.3f} ms; "
+        f"scores within {err:.1e} of the CPU's ({smi})")
+
+    # Sim3 RANSAC and LM on 1024 pairs with 20% outliers, the same draw on both
+    K = torch.tensor([520.0, 520.0, 320.0, 240.0])
+    p1 = torch.rand(n, 3, generator=g) * torch.tensor([4.0, 3.0, 6.0]) \
+        + torch.tensor([-2.0, -1.5, 3.0])
+    S_true = lie.sim3_exp(torch.tensor([0.05, -0.03, 0.08, 0.4, -0.1, 0.2, 0.15]))
+    p2 = lie.sim3_apply(S_true, p1)
+    uv1, uv2 = camera.project(K, p1)[0], camera.project(K, p2)[0]
+    p2 = torch.where(torch.rand(n, 1, generator=g) < 0.2,
+                     p2 + 2.0 * torch.randn(n, 3, generator=g), p2)
+    ok, one = torch.ones(n, dtype=torch.bool), torch.ones(n)
+    sel = sim3solver.sample_minimal_sets(ok, 128, 3, g)
+    sim_args = (p1, p2, ok, K, K, uv1, uv2, one, one)
+    r_c, r = both(lambda *a: sim3solver.ransac_sim3(*a[:-1], sel=a[-1]), *sim_args, sel)
+    cu = [a.cuda() for a in sim_args]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    o = sim3solver.optimize_sim3(r[0], cu[0], cu[1], r[1], *cu[3:])
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    o_c = sim3solver.optimize_sim3(r_c[0], p1, p2, r_c[1], K, K, uv1, uv2, one, one)
+    err = float((o[0].cpu() - o_c[0]).abs().max())
+    off = float(torch.linalg.norm(lie.sim3_log(lie.sim3_compose(
+        o_c[0], lie.sim3_inverse(S_true)))))
+    if err > 1e-3 or off > 5e-3 or abs(int(o[2]) - int(o_c[2])) > 2:
+        raise AssertionError(f"optimize_sim3 on the card: {err} from the CPU's, {off} from truth")
+    log(f"[solver] ransac_sim3 (128 x 3 of 1024 pairs) "
+        f"{wall_ms(lambda: sim3solver.ransac_sim3(*cu, sel=sel)):.2f} ms; optimize_sim3 "
+        f"(10 LM steps): first call in the process {first_ms:.0f} ms (forward-mode AD sets "
+        f"itself up once), then "
+        f"{wall_ms(lambda: sim3solver.optimize_sim3(r[0], cu[0], cu[1], r[1], *cu[3:])):.2f} ms; "
+        f"{int(o[2])} inliers, Sim3 within {err:.1e} of the CPU's ({smi})")
+
+    # EPnP RANSAC on 1024 matches with 30% outliers
+    T_true = lie.se3_exp(torch.tensor([0.1, -0.05, 0.15, 0.3, -0.2, 0.1]))
+    pw = p1 + torch.tensor([0.0, 0.0, 1.0])
+    uv = camera.project(K, lie.se3_apply(T_true, pw))[0]
+    uv = torch.where(torch.rand(n, 1, generator=g) < 0.3,
+                     uv + 60.0 * torch.randn(n, 2, generator=g), uv)
+    sel4 = sim3solver.sample_minimal_sets(ok, 256, 4, g)
+    q_c, q = both(lambda *a: pnp.ransac_pnp(*a[:-1], sel=a[-1]), pw, uv, ok, K, one, sel4)
+    off = float(torch.linalg.norm(lie.se3_log(lie.se3_compose(
+        q[0].cpu(), lie.se3_inverse(T_true)))))
+    if off > 0.01 or abs(int(q[2]) - int(q_c[2])) > 2:
+        raise AssertionError(f"ransac_pnp on the card: {off} from truth, {int(q[2])} inliers "
+                             f"against the CPU's {int(q_c[2])}")
+    pc = [a.cuda() for a in (pw, uv, ok, K, one)]
+    log(f"[solver] ransac_pnp (256 x 4 of 1024 matches, 7 seeds each) "
+        f"{wall_ms(lambda: pnp.ransac_pnp(*pc, sel=sel4)):.2f} ms; {int(q[2])} inliers, pose "
+        f"{off:.1e} from truth ({smi})")
 
 
 # the paths chip_smoke drives, by name: the arguments of ``main_path_setup``
@@ -299,18 +457,32 @@ PATHS = {
                      fx=260.0, seed=11, map_kw=dict(max_keyframes=10, max_points=8192),
                      sys_kw=dict(kf_idle_frames=1, max_frames_between_kf=2),
                      min_tracked=18, min_kf=3, ate_max=0.12, metric=False, capacity=True),
+    # the kidnap: lost on white noise, relocalized on the way back (the
+    # shipped vocabulary; loop closing off, the database is kept regardless)
+    "reloc": dict(sensor="mono", h=480, w=640, n_features=1024, n_levels=8, n_frames=30,
+                  fx=520.0, seed=9, relief=True, kidnap=(3, 16, 26),
+                  sys_kw=dict(max_frames_between_kf=2),
+                  min_tracked=25, min_kf=6, ate_max=0.05, metric=False),
+    # one big orbit that closes organically; the global BA runs on a thread
+    "loop": dict(sensor="mono", h=480, w=640, n_features=1024, n_levels=8, n_frames=500,
+                 fx=520.0, seed=3, relief=True, motion="orbit_big", plane_half=6.0,
+                 noise=3.0, map_kw=dict(max_keyframes=128, max_points=32768),
+                 sys_kw=dict(enable_loop_closing=True, async_gba=True, n_local_kf=8),
+                 min_tracked=450, min_kf=10, ate_max=0.06, metric=False, loop=True),
 }
 
 
-def main_path_setup(device="cuda", h=480, w=640, n_features=1024, n_levels=8,
-                    n_frames=60, fx=520.0, map_kw=None, sensor="mono", bf=0.0, seed=3,
-                    sys_kw=None):
-    """A path's SystemConfig and its synthetic sequence: (cfg, frames,
-    ground-truth T_cw), ``frames[i]`` being the arguments of the sensor's
-    track call: (img,), (img, depth) or (left, right)."""
-    from orbslam2_with_quadrics_tpu_torch.models import frontend as fe
-    from orbslam2_with_quadrics_tpu_torch.models import map_state as ms
-    from orbslam2_with_quadrics_tpu_torch.models import system as sysm
+RENDER_ARGS = ("h", "w", "n_frames", "fx", "sensor", "bf", "seed", "relief", "motion",
+               "plane_half", "noise", "kidnap")
+
+
+def render_sequence(h=480, w=640, n_frames=60, fx=520.0, sensor="mono", bf=0.0, seed=3,
+                    relief=False, motion="strafe", plane_half=3.0, noise=0.0, kidnap=None):
+    """A path's synthetic sequence: (frames, ground-truth T_cw), ``frames[i]``
+    being the arguments of the sensor's track call: (img,), (img, depth) or
+    (left, right). ``kidnap`` = (n, a, b) appends n frames of white noise
+    (ground truth None) and then frames a..b-1 again. Numpy only: ``main``
+    renders every path's sequence in worker processes while the card works."""
     from orbslam2_with_quadrics_tpu_torch.utils import synthetic
 
     t0 = time.time()
@@ -319,15 +491,45 @@ def main_path_setup(device="cuda", h=480, w=640, n_features=1024, n_levels=8,
         left, right, poses, _ = synthetic.planar_sequence_stereo(baseline=bf / fx, **kw)
         frames = list(zip(left, right))
     else:
-        imgs, poses, K = synthetic.planar_sequence(**kw)
+        imgs, poses = zip(*synthetic.planar_stream(
+            relief=relief, motion=motion, plane_half=plane_half, noise=noise, **kw))
+        K = np.array([fx, fx, w / 2.0, h / 2.0])
         frames = [(im,) for im in imgs]
         if sensor == "rgbd":
             frames = [(im, synthetic.planar_depth(T, K, h, w)) for im, T in zip(imgs, poses)]
-    log(f"[{sensor}] rendered {n_frames} frames {w}x{h} in {time.time() - t0:.1f} s")
+    poses = list(poses)
+    if kidnap:
+        n_noise, a, b = kidnap
+        rng = np.random.RandomState(3)
+        frames += [(rng.rand(h, w).astype(np.float32) * 255.0,) for _ in range(n_noise)]
+        frames += frames[a:b]
+        poses += [None] * n_noise + poses[a:b]
+    return frames, poses, time.time() - t0
+
+
+def render_args(name):
+    """``render_sequence``'s arguments among a path's."""
+    return {k: v for k, v in PATHS[name].items() if k in RENDER_ARGS}
+
+
+def main_path_setup(device="cuda", n_features=1024, n_levels=8, map_kw=None, sys_kw=None,
+                    rendered=None, **render_kw):
+    """A path's SystemConfig and its synthetic sequence: (cfg, frames,
+    ground-truth T_cw). ``render_kw`` are ``render_sequence``'s arguments;
+    ``rendered`` is its result where the sequence was rendered beforehand."""
+    from orbslam2_with_quadrics_tpu_torch.models import frontend as fe
+    from orbslam2_with_quadrics_tpu_torch.models import map_state as ms
+    from orbslam2_with_quadrics_tpu_torch.models import system as sysm
+
+    frames, poses, seconds = rendered or render_sequence(**render_kw)
+    r = {**dict(h=480, w=640, fx=520.0, sensor="mono", bf=0.0), **render_kw}
+    h, w, fx, sensor = r["h"], r["w"], r["fx"], r["sensor"]
+    log(f"[{sensor}] rendered {len(frames)} frames {w}x{h} in {seconds:.1f} s"
+        + (" (beforehand, in a worker process)" if rendered else ""))
     cfg = sysm.SystemConfig(
         frontend=fe.FrontendConfig(height=h, width=w, n_features=n_features,
                                    n_levels=n_levels, fx=fx, fy=fx, cx=w / 2.0, cy=h / 2.0,
-                                   bf=bf),
+                                   bf=r["bf"]),
         map=ms.MapConfig(n_features=n_features, n_levels=n_levels, device=device,
                          **(map_kw or {})),
         sensor=sensor, **(sys_kw or {}),
@@ -341,6 +543,7 @@ def trajectory_error(traj, poses, with_scale=True):
     output; raises on a non-finite pose."""
     from orbslam2_with_quadrics_tpu_torch.utils import metrics
 
+    traj = [e for e in traj if poses[e[0]] is not None]
     est = [metrics.se3_vec_to_mat(T) for _, _, T in traj]
     if not all(np.isfinite(T).all() for T in est):
         raise AssertionError("non-finite pose in the trajectory")
@@ -350,32 +553,69 @@ def trajectory_error(traj, poses, with_scale=True):
             float(np.linalg.norm(c_gt.max(0) - c_gt.min(0))))
 
 
-def run_main_path(name="mono", device="cuda", sync=False, log_every=5, **overrides):
+def relocalized_error(traj_before, poses, T_cw, kidnap, lost):
+    """Distance of the relocalized camera centre, mapped to the ground
+    truth's frame by the sim(3) alignment of the pre-kidnap trajectory, to
+    the nearest return frame's true centre (the pipeline relocalizes one of
+    the last two frames it was given)."""
+    from orbslam2_with_quadrics_tpu_torch.utils import metrics
+
+    pre = [e for e in traj_before if e[0] not in lost]
+    c_est = metrics.camera_centers_from_Tcw([metrics.se3_vec_to_mat(T) for _, _, T in pre])
+    c_gt = metrics.camera_centers_from_Tcw([poses[f] for f, _, _ in pre])
+    s, R, t = metrics.umeyama_align(c_est, c_gt)
+    c = metrics.camera_centers_from_Tcw([metrics.se3_vec_to_mat(T_cw.cpu().numpy())])[0]
+    c = s * R @ c + t
+    back = metrics.camera_centers_from_Tcw(poses[kidnap[1]:kidnap[2]])
+    return float(np.linalg.norm(back - c, axis=1).min())
+
+
+def _median(xs):
+    return float(np.median(xs)) if len(xs) else float("nan")
+
+
+def run_main_path(name="mono", device="cuda", sync=False, log_every=5, rendered=None,
+                  **overrides):
     """Drive one of ``PATHS`` through ``System.track_*`` (``overrides``
-    replace its arguments; ``sync`` takes the synchronous path). The
+    replace its arguments; ``sync`` takes the synchronous path; ``rendered``
+    is the sequence where ``render_sequence`` ran beforehand). The
     kernels' launch counts are set to 0 just before the first frame and read
     just after the last. Returns a dict of the run's numbers; raises on any
     failed check."""
+    from orbslam2_with_quadrics_tpu_torch.models import loop_closing as lc
     from orbslam2_with_quadrics_tpu_torch.models import system as sysm
     from orbslam2_with_quadrics_tpu_torch.models import tracking as tr
     from orbslam2_with_quadrics_tpu_torch.ops import cuda_kernels as ck
+    from orbslam2_with_quadrics_tpu_torch.ops import matching
 
     spec = {**PATHS[name], **overrides}
     bar = {k: spec.pop(k, None) for k in ("min_tracked", "min_kf", "ate_max", "metric",
-                                          "scale_free", "capacity")}
+                                          "scale_free", "capacity", "loop")}
+    kidnap = spec.get("kidnap")
     tag = name + ("-sync" if sync else "")
-    cfg, frames, poses = main_path_setup(device, **spec)
+    spec.setdefault("n_frames", 60)
+    cfg, frames, poses = main_path_setup(device, rendered=rendered, **spec)
     cuda = device == "cuda"
     map_events = []
-    n_calls = {"frames": 0, "map_passes": 0}
-    # a tracked frame is one track_frame call, a mapping pass one
-    # _insert_and_map (pipelined) or _insert_keyframe (synchronous) call
-    track_frame = tr.track_frame
-    insert_and_map, insert_keyframe = sysm._insert_and_map, sysm.System._insert_keyframe
+    n_calls = {"frames": 0, "map_passes": 0, "mutual_match": 0, "loop_proj": 0,
+               "loop_fuse": 0}
+    relocs = []  # per _relocalize call: ms, kernel launches, recovered
+    # a tracked frame is one track_frame call (relocalization's included), a
+    # mapping pass one _insert_and_map (pipelined) or _insert_keyframe
+    # (synchronous) call; each of the three loop-closing searches is counted
+    # by its own function
+    patched = [(tr, "track_frame", "frames"), (matching, "mutual_match", "mutual_match"),
+               (lc, "project_loop_points", "loop_proj"), (lc, "fuse_loop_points", "loop_fuse")]
+    originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patched]
+    originals += [(sysm, "_insert_and_map", sysm._insert_and_map),
+                  (sysm.System, "_insert_keyframe", sysm.System._insert_keyframe),
+                  (sysm.System, "_relocalize", sysm.System._relocalize)]
 
-    def counted_track_frame(*a, **k):
-        n_calls["frames"] += 1
-        return track_frame(*a, **k)
+    def counted(fn, key):
+        def call(*a, **k):
+            n_calls[key] += 1
+            return fn(*a, **k)
+        return call
 
     def timed(fn):  # device time of each mapping pass
         def call(*a, **k):
@@ -390,34 +630,65 @@ def run_main_path(name="mono", device="cuda", sync=False, log_every=5, **overrid
             return out
         return call
 
-    tr.track_frame = counted_track_frame
-    sysm._insert_and_map = timed(insert_and_map)
-    sysm.System._insert_keyframe = timed(insert_keyframe)
+    relocalize = sysm.System._relocalize
+
+    def timed_relocalize(self, feats):
+        if cuda:
+            torch.cuda.synchronize()
+        n0, t0 = ck.LAUNCHES["masked_hamming_best2"], time.perf_counter()
+        ok = relocalize(self, feats)
+        if cuda:
+            torch.cuda.synchronize()
+        relocs.append({"ms": 1e3 * (time.perf_counter() - t0), "recovered": bool(ok),
+                       "launches": ck.LAUNCHES["masked_hamming_best2"] - n0})
+        return ok
+
+    for mod, attr, key in patched:
+        setattr(mod, attr, counted(getattr(mod, attr), key))
+    sysm._insert_and_map = timed(sysm._insert_and_map)
+    sysm.System._insert_keyframe = timed(sysm.System._insert_keyframe)
+    sysm.System._relocalize = timed_relocalize
+    traced = bool(kidnap or bar["loop"])  # tracing drains the device per stage
+    lc.TRACE = [] if traced else None
     old_sync = os.environ.get("ORB_SYNC_TRACK")
     os.environ["ORB_SYNC_TRACK"] = "1" if sync else ""
     try:
         slam = sysm.System(cfg)
         step = getattr(slam, {"mono": "track_monocular", "rgbd": "track_rgbd",
                               "stereo": "track_stereo"}[cfg.sensor])
-        frame_ms = []
+        frame_ms, states, n_kf_at, closed_at = [], [], [], []
+        traj_before = None
         ck.reset_launch_counts()
         for i, images in enumerate(frames):
+            if kidnap and i == spec["n_frames"]:
+                traj_before = slam.full_trajectory()  # the map before the kidnap
             t = time.perf_counter()
+            before = slam.n_loops_closed
             step(*images, timestamp=i / 30.0)
             if cuda:
                 torch.cuda.synchronize()
             dt = (time.perf_counter() - t) * 1e3
+            states.append(slam.state)
+            n_kf_at.append(slam._n_kf_host)
+            if slam.n_loops_closed > before:
+                closed_at.append(i)
+                log(f"[{tag}] loop closed at frame {i}")
             if slam.state == sysm.System.OK and i > slam.init_frame_id + 1:
                 frame_ms.append(dt)
             if i % log_every == 0:
                 log(f"[{tag}] frame {i:3d} state={slam.state} kfs={int(slam.map.n_kf)} "
                     f"pts={int(slam.map.n_pt)} {dt:.1f} ms")
+            if kidnap and i >= spec["n_frames"] + kidnap[0] and slam.state == sysm.System.OK:
+                break  # relocalized: the kidnap is over
+        gba_running = slam._gba_thread is not None
         slam.shutdown()
         traj = slam.full_trajectory()
         launches = dict(ck.LAUNCHES)
+        trace = lc.TRACE or []
     finally:
-        tr.track_frame = track_frame
-        sysm._insert_and_map, sysm.System._insert_keyframe = insert_and_map, insert_keyframe
+        lc.TRACE = None
+        for mod, attr, fn in originals:
+            setattr(mod, attr, fn)
         if old_sync is None:
             os.environ.pop("ORB_SYNC_TRACK", None)
         else:
@@ -425,21 +696,41 @@ def run_main_path(name="mono", device="cuda", sync=False, log_every=5, **overrid
     map_ms = [a.elapsed_time(b) for a, b in map_events]
 
     metric = bool(bar["metric"] or bar["scale_free"])
-    ate, span = trajectory_error(traj, poses, with_scale=not metric)
+    lost = {m["frame"] - 1 for m in slam.metrics if m.get("lost")}
+    # a kidnap is judged on the map built before it and on where the
+    # relocalized camera lands: the relocalization's loop correction takes
+    # the teleport for drift and bends the keyframes after it (as in the
+    # reference), so the later poses are no measure of the map
+    ate, span = trajectory_error(
+        [e for e in (traj_before or traj) if e[0] not in lost], poses, with_scale=not metric)
     tracked = sum(1 for m in slam.metrics if not m.get("lost"))
     out = {
         "path": tag, "sensor": cfg.sensor, "init_frame": slam.init_frame_id,
         "tracked": tracked, "n_kf": int(slam.map.n_kf), "kfs_created": slam.n_kfs_created,
-        "n_pt": int(slam.map.n_pt), "ate": ate, "span": span, "ate_scale_aligned": not metric,
-        "frame_ms_median": float(np.median(frame_ms)) if frame_ms else float("nan"),
-        "map_ms_median": float(np.median(map_ms)) if map_ms else float("nan"),
+        "n_pt": int(slam.map.n_pt), "ate": ate, "span": span, "ate_frac": ate / span,
+        "ate_scale_aligned": not metric,
+        "frame_ms_median": _median(frame_ms), "map_ms_median": _median(map_ms),
         "n_map_passes": n_calls["map_passes"], "n_frame_steps": n_calls["frames"],
-        "launches": launches,
+        "n_calls": dict(n_calls), "launches": launches,
         "capacity_events": {k: getattr(slam, k) for k in (
             "n_kf_compactions", "n_kf_growths", "n_point_compactions", "n_point_growths")},
         "pools": [slam.map.kf_valid.shape[0], slam.map.pt_pos.shape[0]],
+        "n_loops_closed": slam.n_loops_closed, "closed_at": closed_at,
+        "n_reloc_corrections": slam.n_reloc_corrections,
+        "n_gba_applied": slam.n_gba_applied, "relocalizations": relocs,
     }
     log(f"[{tag}] {json.dumps(out)}")
+    if traced:
+        for rec in trace:
+            if "gates" in rec:  # one closure attempt: gates, scale, ms per stage
+                log(f"[{tag}] closure attempt {json.dumps(rec)}")
+        for key in ("add_keyframe_ms", "detect_prepare_ms", "detect_finish_ms"):
+            v = [r[key] for r in trace if key in r]
+            out[key + "_median"] = _median(v)
+            log(f"[{tag}] {key}: median {_median(v):.3f}, max {max(v, default=float('nan')):.3f} "
+                f"over {len(v)} keyframes")
+        for r in relocs:
+            log(f"[{tag}] _relocalize: {json.dumps(r)}")
     n_frames = len(frames)
     min_tracked = min(bar["min_tracked"], n_frames - 5)
     ate_limit = bar["ate_max"] if bar["metric"] else bar["ate_max"] * span
@@ -455,12 +746,48 @@ def run_main_path(name="mono", device="cuda", sync=False, log_every=5, **overrid
         checks.append((ev["n_kf_compactions"] + ev["n_kf_growths"] >= 1,
                        "the keyframe pool compacted or grew"))
         checks.append((len(traj) == n_frames, "every frame has a pose"))
+    if kidnap:
+        n_base, n_noise = spec["n_frames"], kidnap[0]
+        checks += [
+            (states[n_base - 1] == sysm.System.OK and n_kf_at[n_base - 1] > 5,
+             "OK with more than 5 keyframes before the kidnap"),
+            (slam.loop_closer is not None and slam.loop_closer.sparse,
+             "a keyframe database on the shipped vocabulary (sparse path)"),
+            (states[n_base + n_noise - 1] == sysm.System.LOST, "LOST after the noise frames"),
+            (sysm.System.OK in states[n_base + n_noise:], "OK again within the return frames"),
+            (any(r["recovered"] for r in relocs), "_relocalize recovered the pose"),
+        ]
+        err = relocalized_error(traj_before, poses, slam.T_cw, kidnap, lost)
+        out["reloc_centre_error_frac"] = err / span
+        log(f"[{tag}] relocalized camera centre {err / span:.4f} of the span from the "
+            f"nearest return frame's ground truth")
+        checks.append((err < 0.05 * span, "the relocalized pose within 5% of the span"))
+        if cuda:
+            checks.append((sum(r["launches"] for r in relocs) > 0,
+                           "kernel launches inside _relocalize"))
+    if bar["loop"]:
+        checks += [
+            (slam.n_loops_closed >= 1, "at least one loop closed"),
+            (bool(closed_at) and closed_at[0] > n_frames // 2,
+             f"the first closure in the second half (closures at {closed_at})"),
+            (gba_running or slam.n_gba_applied >= 1, "the global BA ran in the background"),
+            (slam.n_gba_applied >= 1 and slam._gba_thread is None,
+             "shutdown() applied the background BA"),
+            (slam.loop_closer.sparse, "the sparse database path"),
+        ]
     if cuda:
         n = launches["masked_hamming_best2"]
-        most = 2 * n_calls["frames"] + 2 * n_calls["map_passes"]
+        most = (2 * n_calls["frames"] + 2 * n_calls["map_passes"] + n_calls["mutual_match"]
+                + n_calls["loop_proj"] + n_calls["loop_fuse"])
         checks.append((n > 0, "masked_hamming_best2 launched by the path"))
-        checks.append((n <= most, f"at most 2 launches per tracked frame and 2 per mapping "
-                                  f"pass ({n} launches, limit {most})"))
+        checks.append((n <= most, f"at most 2 launches per tracked frame, 2 per mapping pass "
+                                  f"and 1 per mutual match, loop projection and loop fuse "
+                                  f"({n} launches, limit {most})"))
+        if bar["loop"]:
+            closures = n_calls["loop_fuse"]
+            checks.append((n_calls["mutual_match"] >= closures >= 1
+                           and n_calls["loop_proj"] >= closures,
+                           "every closure went through its three searches"))
     for ok, what in checks:
         if not ok:
             raise AssertionError(f"{tag} path check failed: {what}")
@@ -481,9 +808,19 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
 
-    max_err, times = phase_kernels(smi)
-    runs = [run_main_path("mono"), run_main_path("rgbd"), run_main_path("stereo"),
-            run_main_path("capacity"), run_main_path("capacity", sync=True)]
+    # the orbit's 500 frames take a minute to render: a worker process does
+    # it while the kernel and solver phases and the two capacity runs (whose
+    # frame times are not quoted) keep this one busy; one worker, so that
+    # the host-bound paths after them find the host's cores free
+    spawn = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as pool:
+        orbit = pool.submit(render_sequence, **render_args("loop"))
+        max_err, times = phase_kernels(smi)
+        phase_solvers(smi)
+        runs = [run_main_path("capacity"), run_main_path("capacity", sync=True),
+                run_main_path("mono"), run_main_path("rgbd"), run_main_path("stereo"),
+                run_main_path("reloc"),
+                run_main_path("loop", log_every=50, rendered=orbit.result())]
     by_path = {}
     for res in runs:
         n = res["launches"]["masked_hamming_best2"]
@@ -493,7 +830,7 @@ def main() -> int:
             f"{res['n_frame_steps']} tracked frames and {res['n_map_passes']} mapping "
             f"passes ({smi})")
         log(smi)
-    mono = runs[0]
+    mono = next(r for r in runs if r["path"] == "mono")
     per_frame = ((by_path["mono"] - 2 * mono["n_map_passes"])
                  / max(mono["n_frame_steps"], 1))
     t = times["main-B 4096x1024"]  # the headline shape: local-map tracking

@@ -137,6 +137,30 @@ def map_state_to_numpy(m: MapState) -> dict:
     return out
 
 
+class HostCopy:
+    """A device tensor copied to pinned host memory without blocking; the
+    CUDA event says when the copy (and everything queued before it) is
+    done. A CPU tensor is its own host copy."""
+
+    def __init__(self, t):
+        self.event = None
+        if t.is_cuda:
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = t
+
+    def ready(self) -> bool:
+        return self.event is None or self.event.query()
+
+    def numpy(self):
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
 # ---------------------------------------------------------------------------
 # scatter helpers
 # ---------------------------------------------------------------------------

@@ -11,25 +11,36 @@ synchronous twin (``_track`` / ``_insert_keyframe``) in the OK state too:
 the two paths must agree, and a regression is bisected by diffing them. A
 pool that fills is compacted or doubled (``_ensure_capacity``).
 
-Not ported yet, each raises ``NotImplementedError`` naming the ROADMAP
-item that brings it: relocalization after tracking loss, loop closing,
-quadric landmarks, asynchronous global BA. The keyframe database and
-vocabulary feed only loop closing and relocalization, so there is none.
+Every keyframe is indexed in the place-recognition database
+(``loop_closing.LoopCloser``, on the shipped vocabulary or one trained from
+the sequence's first keyframes). A lost frame relocalizes against it
+(``_relocalize``: BoW candidates, mutual matching, EPnP RANSAC, guided
+re-tracking), and with ``enable_loop_closing`` each keyframe is checked for
+a loop one keyframe later (``_run_loop_closing``); a closure is followed by
+a global BA, inline or (``async_gba``) on a thread with its own CUDA stream.
+
+Not ported yet: quadric landmarks raise ``NotImplementedError`` naming the
+ROADMAP item that brings them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
 import os
 import sys
+import threading
+from typing import Optional
 
 import numpy as np
 import torch
 
-from ..ops import camera, init2view, lie, matching, orb
+from ..ops import camera, init2view, lie, matching, orb, pnp
+from ..ops import vocab as vocab_mod
 from ..utils import metrics
 from . import frontend as fe
 from . import local_mapping as lm
+from . import loop_closing as lc
 from . import map_state as ms
 from . import tracking as tr
 
@@ -56,42 +67,38 @@ class SystemConfig:
     local_ba_window: int = 16
     depth_factor: float = 1.0       # RGB-D depth map scaling
     enable_loop_closing: bool = False
+    vocab_k: int = 10               # lazily trained vocabulary branching
+    vocab_levels: int = 4           # 10^4 words
+    vocab_train_kfs: int = 4        # train once this many KFs accumulated
+    vocab_path: Optional[str] = "auto"  # pretrained vocabulary: .txt = DBoW2
+                                    # text format, else this package's .npz;
+                                    # 'auto' = the shipped assets/vocab_*.npz,
+                                    # falling back to lazy per-sequence
+                                    # training when no asset exists; None =
+                                    # always lazy
     enable_quadrics: bool = False
-    async_gba: bool = False
+    async_gba: bool = False         # run the post-loop global BA in a
+                                    # background thread, with spanning-tree
+                                    # propagation to keyframes / points
+                                    # created meanwhile; False = inline
     n_local_kf: int = 64            # local-map window
     n_local_pt: int = 4096          # local point budget for tracking
 
 
 _NOT_PORTED = {
-    "relocalize": "relocalization after tracking loss (ROADMAP queue 1 item 12)",
-    "enable_loop_closing": "loop closing (ROADMAP queue 1 item 12)",
     "enable_quadrics": "quadric object landmarks (ROADMAP queue 1 item 13)",
-    "async_gba": "asynchronous global BA (ROADMAP queue 1 item 12)",
 }
 
 
-class _HostCopy:
-    """A device tensor copied to pinned host memory without blocking; the
-    CUDA event says when the copy (and everything queued before it) is
-    done. A CPU tensor is its own host copy."""
+def _default_vocab_asset() -> Optional[str]:
+    """The shipped pretrained vocabulary: the largest assets/vocab_*.npz of
+    this package; None when it ships without one (lazy training)."""
+    adir = os.path.join(os.path.dirname(os.path.dirname(__file__)), "assets")
+    cands = sorted(glob.glob(os.path.join(adir, "vocab_*.npz")), key=os.path.getsize)
+    return cands[-1] if cands else None
 
-    def __init__(self, t):
-        self.event = None
-        if t.is_cuda:
-            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self.host.copy_(t, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
-        else:
-            self.host = t
 
-    def ready(self) -> bool:
-        return self.event is None or self.event.query()
-
-    def numpy(self):
-        if self.event is not None:
-            self.event.synchronize()
-        return self.host.numpy()
+_HostCopy = ms.HostCopy
 
 
 class System:
@@ -110,9 +117,8 @@ class System:
             raise ValueError(
                 f"sensor={cfg.sensor!r} requires frontend.bf > 0 (fx * baseline); "
                 f"got bf={cfg.frontend.bf}")
-        for flag in ("enable_loop_closing", "enable_quadrics", "async_gba"):
-            if getattr(cfg, flag):
-                raise NotImplementedError(_NOT_PORTED[flag])
+        if cfg.enable_quadrics:
+            raise NotImplementedError(_NOT_PORTED["enable_quadrics"])
         self.cfg = cfg
         self.device = torch.device(cfg.map.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -143,6 +149,34 @@ class System:
         self.n_kf_growths = 0
         self._extra_obs_holders = []  # frames whose obs need point-id remaps
         self._reset_gen = 0
+        # place recognition: a pretrained vocabulary gives a database from
+        # the first keyframe on; without one it is trained from the
+        # sequence's first keyframes (_maybe_train_vocab)
+        self.loop_closer = None
+        self.n_loops_closed = 0
+        self.n_reloc_corrections = 0  # relocalizations treated as loop closures
+        self._pretrained_voc = None
+        vocab_path = _default_vocab_asset() if cfg.vocab_path == "auto" else cfg.vocab_path
+        if vocab_path:
+            load = vocab_mod.load_dbow2_text if vocab_path.endswith(".txt") else vocab_mod.load
+            self._pretrained_voc = load(vocab_path, device=self.device)
+        # async global BA: the thread optimizes a snapshot while tracking
+        # keeps replacing self.map (no function of this package writes a
+        # map tensor in place); the merge is pure array surgery
+        self._gba_thread = None
+        self._gba_result = None
+        self._gba_gen = 0
+        self.n_gba_applied = 0
+        # guards the (gen check -> result store) pair in the worker and the
+        # (gen bump -> result clear) pair on the main thread
+        self._gba_lock = threading.Lock()
+        # bumped by point-pool compaction (point ids are remapped): a
+        # snapshot from an older epoch can still apply its keyframe poses
+        # but not its point ids
+        self._map_epoch = 0
+        # big-change counter for map_changed()
+        self._big_change_idx = 0
+        self._last_big_change_idx = 0
         self.reset()
 
     # ------------------------------------------------------------------
@@ -208,12 +242,20 @@ class System:
     def deactivate_localization_mode(self):
         self.only_tracking = False
 
+    def map_changed(self):
+        """True if a big map change (loop closure, global BA, reset)
+        happened since the last call."""
+        changed = self._big_change_idx != self._last_big_change_idx
+        self._last_big_change_idx = self._big_change_idx
+        return changed
+
     def shutdown(self):
         """Flush all in-flight work: the pending pipelined frame, the
-        in-flight mapping pass and the device's queue. Call before reading
-        trajectories."""
+        in-flight mapping pass, the global-BA thread and the device's queue.
+        Call before reading trajectories."""
         self._flush()
         self._consume_map_aux(block=True)
+        self._apply_gba_if_ready(wait=True)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -264,6 +306,17 @@ class System:
         self._n_ref_vals = {2: 1, 3: 1}
         self._ref_anchor = None    # ref KF pose as the track chain saw it
         self._reset_gen += 1
+        self.loop_closer = None
+        if self._pretrained_voc is not None:
+            self.loop_closer = lc.LoopCloser(self._pretrained_voc, cfg.map)
+        self._vocab_pool = []
+        self._pending_loop = None  # (slot, prefetched detect arrays)
+        # abandon any in-flight global BA (its snapshot is now meaningless)
+        with self._gba_lock:
+            self._gba_gen += 1
+            self._gba_result = None
+        self._gba_thread = None
+        self._big_change_idx += 1
 
     def _get_obs_A(self):
         """[K,P] observation matrix, rebuilt only when the observation
@@ -283,13 +336,310 @@ class System:
                 min(cfg.n_local_pt, cfg.map.max_points))
 
     def _relocalize(self, feats) -> bool:
-        raise NotImplementedError(_NOT_PORTED["relocalize"])
+        """Relocalization: covisibility-group-scored BoW candidates ->
+        mutual descriptor matching (>= 15) -> PnP RANSAC (>= 10 to
+        continue) -> guided projection rescue against the map -> accept at
+        >= 50 final inliers."""
+        lcs = self.loop_closer
+        if lcs is None:
+            return False
+        cfg = self.cfg
+        fcfg = cfg.frontend
+        word, _ = vocab_mod.transform_any(lcs.voc, feats.desc, feats.valid)
+        P = self.map.pt_pos.shape[0]
+        for cand in lcs.detect_reloc_candidates(self.map, word):
+            # dense mutual-best pairing, not exact leaf-word bucketing (see
+            # loop_closing._sim3_geometry)
+            mi, _ = matching.mutual_match(
+                feats.desc, feats.valid,
+                self.map.kf_desc[cand], self.map.kf_kp_valid[cand],
+                th=matching.TH_LOW, ratio=0.75,
+            )
+            pt = self.map.kf_obs_point[cand][torch.clamp(mi, 0, mi.shape[0] - 1)]
+            ok = (mi >= 0) & (pt >= 0)
+            if int(torch.sum(ok)) < 15:
+                continue
+            pw = self.map.pt_pos[torch.clamp(pt.to(torch.int64), 0, P - 1)]
+            lvl = torch.clamp(feats.level.to(torch.int64), 0, self._inv_sigma2.shape[0] - 1)
+            T, inl, n_inl = pnp.ransac_pnp(
+                pw, feats.uv_und, ok, self._K, self._inv_sigma2[lvl],
+                generator=self._generator,
+            )
+            if int(n_inl) < 10:
+                continue
+            # guided rescue: seed from the PnP inliers, re-match by
+            # projection (motion window then the tight local window) and
+            # re-optimize
+            obs = torch.where(inl & ok, pt, -1)
+            res = tr.track_frame(
+                self.map, feats, T, obs, self._K, fcfg.bf,
+                height=fcfg.height, width=fcfg.width, n_levels=fcfg.n_levels,
+                scale=fcfg.scale_factor, obs_A=self._get_obs_A(),
+            )
+            if int(res.n_inliers) >= 50:
+                T_drift = self.T_cw  # stale prediction in the DRIFTED frame
+                self.T_cw = res.T_cw
+                self.prev_obs = res.obs_point
+                self.velocity = lie.se3_identity(device=self.device)
+                self._reloc_loop_correction(cand, T_drift, res.T_cw)
+                return True
+        return False
+
+    def _reloc_loop_correction(self, cand: int, T_drift, T_new):
+        """Treat a relocalization after tracking loss as the loop-closure
+        event it topologically is: the jump between the drifted prediction
+        ``T_drift`` and the relocalized pose ``T_new`` IS the Sim3
+        correction a loop closure would have applied had detection fired
+        before tracking broke down. Bends the drifted keyframe chain
+        (anchored at the pre-loss reference keyframe) onto the revisited
+        map with the essential-graph machinery, the reloc pair as the loop
+        pair."""
+        lcs = self.loop_closer
+        if lcs is None:
+            return
+        slot = self.ref_kf  # drifted frontier keyframe
+        if slot == cand:
+            return
+        # significance gate: centers differ by > 2 cm or rotation > 1 deg
+        Td, Tn = T_drift.cpu(), T_new.cpu()
+        jump = float(torch.linalg.norm(lie.camera_center(Td) - lie.camera_center(Tn)))
+        dq = float(torch.abs(torch.sum(Td[:4] * Tn[:4])))
+        if jump < 0.02 and dq > np.cos(np.deg2rad(1.0) / 2):
+            return
+        cfg = self.cfg
+        fcfg = cfg.frontend
+        T_slot = self.map.kf_pose[slot]
+        # corrected pose of the drifted frontier:
+        # T_slot_corr = (T_slot o T_drift^-1) o T_new
+        S_corr = lie.sim3_from_se3(
+            lie.se3_compose(lie.se3_compose(T_slot, lie.se3_inverse(T_drift)), T_new))
+        if os.environ.get("ORB_DEBUG_LOOPS"):
+            print(f"[reloc-loop] slot={slot} cand={cand} jump={jump:.3f}",
+                  file=sys.stderr, flush=True)
+        self.map = lcs._correct_graph(self.map, slot, cand, S_corr)
+        loop_ids = lc.gather_loop_points(self.map, cand)
+        self.map, _ = lc.fuse_loop_points(
+            self.map, slot, loop_ids, self._K, n_levels=fcfg.n_levels,
+            scale=fcfg.scale_factor, height=fcfg.height, width=fcfg.width,
+        )
+        lcs.loop_edges.append((int(slot), int(cand)))
+        lcs.last_loop_kf = max(int(slot), int(cand))
+        self.n_loops_closed += 1
+        self.n_reloc_corrections += 1
+        self._big_change_idx += 1
+        # a keyframe insertion pending across this surgery would land a
+        # drifted-frame pose in the corrected map: abort it (the generation
+        # guard that protects against reset)
+        self._reset_gen += 1
+        self._ref_anchor = None
+        self._red_cum = None  # fuse merged duplicates: histogram stale
+        # the relocalized pose itself is already in the (fixed) old-map
+        # frame: cand is the essential graph's gauge, so T_new stays valid
+        self._global_ba_after_closure(slot)
+
+    def _global_ba_after_closure(self, slot: int):
+        """Global refinement after an essential-graph correction: on a
+        thread (``async_gba``) or inline."""
+        if self.cfg.async_gba:
+            self._launch_global_ba(slot)
+        else:
+            self.map, _ = lm.run_global_ba(
+                self.map, self._K, float(self.cfg.frontend.bf), self._inv_sigma2,
+                n_iters=10)
+
+    def _close_loops(self, slot: int, cands):
+        """Try the detected candidates of keyframe ``slot`` in order; the
+        first that passes the Sim3 gates closes the loop."""
+        cfg = self.cfg
+        fcfg = cfg.frontend
+        for cand in cands:
+            self.map, ok = self.loop_closer.attempt_close(
+                self.map, slot, cand, self._K, n_levels=fcfg.n_levels,
+                scale=fcfg.scale_factor, height=fcfg.height, width=fcfg.width,
+                # metric sensors fix the Sim3 scale
+                fix_scale=cfg.sensor != "mono", generator=self._generator,
+            )
+            if ok:
+                self.n_loops_closed += 1
+                self._big_change_idx += 1
+                # SearchAndFuse merged duplicate points: the redundancy
+                # histogram must see the fused table
+                self._red_cum = None
+                self._global_ba_after_closure(slot)
+                return True
+        return False
+
+    def _run_loop_closing(self, slot: int):
+        """Loop detection with one-keyframe latency: the database scores +
+        covisibility DetectLoop needs are queued and prefetched at
+        insertion, consumed at the next keyframe."""
+        pend = self._pending_loop
+        self._pending_loop = None
+        if pend is not None:
+            pslot, prep = pend
+            self._close_loops(pslot, self.loop_closer.finish_detect(prep))
+        prep = self.loop_closer.prepare_detect(self.map, slot, self._kf_live)
+        if prep is not None:
+            self._pending_loop = (slot, prep)
+
+    def _maybe_train_vocab(self, feats):
+        """Without a pretrained vocabulary, train a small one from the
+        early keyframes' descriptors and index the keyframes so far."""
+        if self.loop_closer is not None:
+            return
+        cfg = self.cfg
+        self._vocab_pool.append(feats.desc[feats.valid])
+        if len(self._vocab_pool) < cfg.vocab_train_kfs:
+            return
+        desc = torch.cat(self._vocab_pool)
+        if desc.shape[0] < 256:
+            return
+        voc = vocab_mod.train(desc, k=cfg.vocab_k, levels=cfg.vocab_levels)
+        self.loop_closer = lc.LoopCloser(voc, cfg.map)
+        # the keyframe pool may have grown past cfg.map.max_keyframes
+        # before training finished: size the database rows from the LIVE pool
+        self.loop_closer.grow(self.map.kf_valid.shape[0])
+        kf_valid = self.map.kf_valid.cpu().numpy()
+        for s_ in range(int(self.map.n_kf)):
+            if kf_valid[s_]:
+                self.loop_closer.add_keyframe_from_map(self.map, s_)
+        self._vocab_pool = []
+
+    def _index_keyframe(self, feats, slot: int):
+        """The place-recognition database is always maintained:
+        relocalization needs it even with loop closing disabled."""
+        self._maybe_train_vocab(feats)
+        if self.loop_closer is not None:
+            self.loop_closer.add_keyframe_from_map(self.map, slot)
+
+    # ------------------------------------------------------------------
+    # async global BA: the thread optimizes a snapshot on its own CUDA
+    # stream while tracking keeps replacing self.map; the result is merged
+    # at the top of a later frame, with spanning-tree propagation to the
+    # keyframes and points created while it ran
+    # ------------------------------------------------------------------
+
+    def _launch_global_ba(self, slot: int):
+        cfg = self.cfg
+        snap = self.map
+        with self._gba_lock:
+            self._gba_gen += 1
+            gen = self._gba_gen
+            self._gba_result = None
+        epoch = self._map_epoch
+        on_card = self.device.type == "cuda"
+        if on_card:
+            # everything queued so far (the closure's correction) must
+            # finish before the thread's stream reads the snapshot
+            launched = torch.cuda.Event()
+            launched.record(torch.cuda.current_stream(self.device))
+            stream = torch.cuda.Stream(self.device)
+
+        def solve():
+            return lm.run_global_ba(snap, self._K, float(cfg.frontend.bf),
+                                    self._inv_sigma2, n_iters=10)[0]
+
+        def run():
+            if on_card:
+                with torch.cuda.device(self.device), torch.cuda.stream(stream):
+                    stream.wait_event(launched)
+                    m2 = solve()
+                stream.synchronize()
+            else:
+                m2 = solve()
+            with self._gba_lock:
+                if gen == self._gba_gen:  # superseded by a newer loop? drop
+                    self._gba_result = (snap, m2, epoch)
+
+        self._gba_thread = threading.Thread(target=run, daemon=True)
+        self._gba_thread.start()
+
+    def _apply_gba_if_ready(self, wait: bool = False):
+        if self._gba_thread is not None and wait:
+            self._gba_thread.join()
+        with self._gba_lock:
+            if self._gba_result is None:
+                return
+            snap, gba, epoch = self._gba_result
+            self._gba_result = None
+        self._gba_thread = None
+        m = self.map
+        K = m.kf_valid.shape[0]
+
+        # the map may have GROWN since the snapshot (grow_map preserves
+        # keyframe / point ids, so pad the snapshot masks with False)
+        Ks = snap.kf_valid.shape[0]
+        kf_valid = m.kf_valid.cpu().numpy()
+        snap_kf_valid = np.zeros((K,), bool)
+        snap_kf_valid[:Ks] = snap.kf_valid.cpu().numpy()
+        in_gba_kf = snap_kf_valid & kf_valid
+        old_pose = m.kf_pose.cpu().numpy()
+        new_pose = old_pose.copy()
+        new_pose[in_gba_kf] = gba.kf_pose.cpu().numpy()[in_gba_kf[:Ks]]
+        # spanning-tree propagation to keyframes created during the BA:
+        # Tcw_new = Tcw_old Twc_parent_old Tcw_parent_new, walking until
+        # every new keyframe has a corrected parent
+        parents = m.kf_parent.cpu().numpy()
+        done = in_gba_kf.copy()
+        pending = [k for k in range(K) if kf_valid[k] and not done[k]]
+        for _ in range(K):
+            if not pending:
+                break
+            rest = []
+            for k in pending:
+                p = parents[k]
+                if p >= 0 and done[p]:
+                    T_rel = _np_se3_compose(old_pose[k], _np_se3_inverse(old_pose[p]))
+                    new_pose[k] = _np_se3_compose(T_rel, new_pose[p])
+                    done[k] = True
+                else:
+                    rest.append(k)
+            if len(rest) == len(pending):
+                break  # orphans (no corrected ancestor): keep the old pose
+            pending = rest
+
+        # points: the BA result for snapshot points, the reference
+        # keyframe's correction for points created meanwhile. If a
+        # point-pool compaction remapped ids since the snapshot (epoch
+        # bump), snapshot point ids are stale: every point takes the
+        # reference-keyframe correction (keyframe ids stay valid).
+        P = m.pt_pos.shape[0]
+        Ps = snap.pt_valid.shape[0]
+        pt_valid = m.pt_valid.cpu().numpy()
+        snap_pt_valid = np.zeros((P,), bool)
+        if epoch == self._map_epoch:
+            snap_pt_valid[:Ps] = snap.pt_valid.cpu().numpy()
+        in_gba_pt = snap_pt_valid & pt_valid
+        pos = m.pt_pos.cpu().numpy().copy()
+        if in_gba_pt.any():
+            pos[in_gba_pt] = gba.pt_pos.cpu().numpy()[in_gba_pt[:Ps]]
+        new_pt = pt_valid & ~in_gba_pt
+        if new_pt.any():
+            ref = np.clip(m.pt_first_kf.cpu().numpy(), 0, K - 1)
+            idx = np.where(new_pt)[0]
+            r = ref[idx]
+            corr = lie.se3_apply(
+                lie.se3_inverse(torch.as_tensor(new_pose[r])),
+                lie.se3_apply(torch.as_tensor(old_pose[r]), torch.as_tensor(pos[idx])))
+            pos[idx] = corr.numpy()
+
+        self.map = m._replace(kf_pose=torch.as_tensor(new_pose, device=self.device),
+                              pt_pos=torch.as_tensor(pos, device=self.device))
+        # re-anchor the live camera on its (possibly corrected) reference KF
+        old_ref = torch.as_tensor(old_pose[self.ref_kf], device=self.device)
+        new_ref = torch.as_tensor(new_pose[self.ref_kf], device=self.device)
+        self.T_cw = lie.se3_compose(
+            lie.se3_compose(self.T_cw, lie.se3_inverse(old_ref)), new_ref)
+        self._ref_anchor = new_ref
+        self._big_change_idx += 1
+        self.n_gba_applied += 1
 
     def _track(self, feats, timestamp):
         """Synchronous path: initialization, and with ``_force_sync`` the
         steady state too (one blocking read of the inlier count per frame)."""
         cfg = self.cfg
         self.last_feats = feats
+        self._apply_gba_if_ready()
         if self.state == self.NOT_INITIALIZED:
             if cfg.sensor == "mono":
                 self._mono_init(feats)
@@ -347,6 +697,7 @@ class System:
         host, and process the PREVIOUS frame's stats. ``aux_img`` is the
         depth map (RGB-D), the right image (stereo) or None (mono)."""
         cfg = self.cfg
+        self._apply_gba_if_ready()
         if self._ref_anchor is None:
             self._ref_anchor = self.map.kf_pose[self.ref_kf]
         if self._red_cum is None:
@@ -400,7 +751,7 @@ class System:
         the pose unchanged. Right after a weak mono initialization (<= 5
         keyframes) both frames are recorded lost and the system starts
         over. Otherwise a younger frame that re-tracked on its own stays as
-        the pipeline head; else the reference relocalizes (not ported)."""
+        the pipeline head; else relocalization runs on the newest features."""
         cfg = self.cfg
         young = self._pend
         self._pend = None
@@ -501,9 +852,15 @@ class System:
         return bool((c1a or c1b or c1c) and c2)
 
     def _protect_mask(self):
-        """[K] keyframes that culling must keep (loop-edge ends in the
-        reference; none without loop closing), sized by the map's pool."""
-        return torch.zeros(self.map.kf_valid.shape[0], dtype=torch.bool, device=self.device)
+        """[K] keyframes that culling must keep, sized by the map's pool:
+        the ends of loop edges (culling one would silently drop its edge
+        from every later essential graph)."""
+        pm = np.zeros((self.map.kf_valid.shape[0],), bool)
+        if self.loop_closer is not None:
+            for i, j in self.loop_closer.loop_edges:
+                pm[i] = True
+                pm[j] = True
+        return torch.as_tensor(pm, device=self.device)
 
     def _ensure_capacity_fast(self, p):
         """Host-estimate capacity check, without a device read in the
@@ -554,6 +911,9 @@ class System:
         # the chain last saw the new ref KF at its insert pose; local BA's
         # refinement lands through the next frame's re-anchor
         self._ref_anchor = p["T"]
+        self._index_keyframe(p["feats"], slot)
+        if cfg.enable_loop_closing and self.loop_closer is not None:
+            self._run_loop_closing(slot)
 
     def _ref_kf_tracked(self, min_obs: int) -> int:
         """KeyFrame::TrackedMapPoints(minObs) of the reference keyframe."""
@@ -638,7 +998,11 @@ class System:
         self.map = ms.update_point_stats(self.map, self._sf)
         self.map, _ = lm.run_local_ba(self.map, slot, self._K, bf, self._inv_sigma2,
                                       window=cfg.local_ba_window)
-        self.map = lm.cull_keyframes(self.map, slot, None, n_levels=fcfg.n_levels)
+        self.map = lm.cull_keyframes(self.map, slot, self._protect_mask(),
+                                     n_levels=fcfg.n_levels)
+        self._index_keyframe(feats, self.ref_kf)
+        if cfg.enable_loop_closing and self.loop_closer is not None:
+            self._close_loops(self.ref_kf, self.loop_closer.detect(self.map, self.ref_kf))
         # adopt the BA-refined pose and the surviving observations
         self.T_cw = self.map.kf_pose[self.ref_kf]
         self.prev_obs = self.map.kf_obs_point[self.ref_kf]
@@ -663,6 +1027,7 @@ class System:
             n_valid = int(old_valid.sum())
             if P - n_valid >= max(3 * N, P // 8):
                 self.map, new_idx = ms.compact_points(m)
+                self._map_epoch += 1
                 self.n_point_compactions += 1
                 self._remap_point_ids(new_idx, old_valid)
             else:
@@ -683,6 +1048,8 @@ class System:
                       f"growing to {2 * K}", file=sys.stderr, flush=True)
                 self.map = ms.grow_map(self.map, new_K=2 * K)
                 self.n_kf_growths += 1
+                if self.loop_closer is not None:
+                    self.loop_closer.grow(2 * K)
         # pool shapes or point ids may have changed: the redundancy
         # histogram is recomputed lazily from the new map
         self._red_cum = None
@@ -692,7 +1059,9 @@ class System:
         id held OUTSIDE the MapState is re-anchored first: trajectory
         entries and point reference keyframes walk the spanning tree past
         culled slots (the SaveTrajectoryTUM walk) to a live ancestor, then
-        all ids are remapped. The walks run on the host in numpy."""
+        all ids are remapped; the database rows follow the permutation and
+        an in-flight async global BA is abandoned (its keyframe ids are
+        stale). The walks run on the host in numpy."""
         m = self.map
         K = m.kf_valid.shape[0]
         kf_valid = m.kf_valid.cpu().numpy()
@@ -759,6 +1128,19 @@ class System:
         # 4. host-held ids (a pipelined frame's "ref_kf" only reaches the
         #    trajectory, and the pipeline is drained before a compaction)
         self.ref_kf = max(live(self.ref_kf), 0)
+        lcs = self.loop_closer
+        if lcs is not None:
+            lcs.permute(torch.as_tensor(order, device=self.device))
+            lcs.loop_edges = [(int(new_idx[i]), int(new_idx[j]))
+                              for i, j in lcs.loop_edges if kf_valid[i] and kf_valid[j]]
+            lcs.consistency = []
+            lcs.last_loop_kf = (
+                int(new_idx[lcs.last_loop_kf])
+                if 0 <= lcs.last_loop_kf < K and kf_valid[lcs.last_loop_kf] else -999)
+        self._pending_loop = None  # its slot and scores predate the remap
+        with self._gba_lock:
+            self._gba_gen += 1
+            self._gba_result = None
 
     def _remap_point_ids(self, new_idx, old_valid):
         """Point-id fixup after ``compact_points`` for the ids held outside

@@ -17,6 +17,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 
 _EPS = 1e-8
 
@@ -254,3 +255,144 @@ def se3_from_matrix(M):
 def camera_center(T):
     """World position of the camera of pose T_cw: C = -R^T t."""
     return -quat_rotate(quat_conj(se3_quat(T)), se3_trans(T))
+
+
+# ---------------------------------------------------------------------------
+# Sim3 (8-vector [q, t, s]): loop closing and the essential graph
+# ---------------------------------------------------------------------------
+
+def sim3_make(q, t, s):
+    return torch.cat([q, t, s[..., None] if s.ndim == q.ndim - 1 else s], dim=-1)
+
+
+def sim3_quat(S):
+    return S[..., :4]
+
+
+def sim3_trans(S):
+    return S[..., 4:7]
+
+
+def sim3_scale(S):
+    return S[..., 7]
+
+
+def sim3_identity(batch_shape=(), dtype=torch.float32, device="cpu"):
+    S = torch.zeros(tuple(batch_shape) + (8,), dtype=dtype, device=device)
+    S[..., 0] = 1.0
+    S[..., 7] = 1.0
+    return S
+
+
+def sim3_apply(S, p):
+    return sim3_scale(S)[..., None] * quat_rotate(sim3_quat(S), p) + sim3_trans(S)
+
+
+def sim3_compose(A, B):
+    q = quat_mul(sim3_quat(A), sim3_quat(B))
+    t = sim3_scale(A)[..., None] * quat_rotate(sim3_quat(A), sim3_trans(B)) + sim3_trans(A)
+    s = sim3_scale(A) * sim3_scale(B)
+    return torch.cat([quat_normalize(q), t, s[..., None]], dim=-1)
+
+
+def sim3_inverse(S):
+    qi = quat_conj(sim3_quat(S))
+    si = 1.0 / sim3_scale(S)
+    t = -si[..., None] * quat_rotate(qi, sim3_trans(S))
+    return torch.cat([qi, t, si[..., None]], dim=-1)
+
+
+def sim3_from_se3(T, s=None):
+    if s is None:
+        s = torch.ones(T.shape[:-1], dtype=T.dtype, device=T.device)
+    return torch.cat([T, s[..., None]], dim=-1)
+
+
+def sim3_to_se3(S):
+    """Drop scale into translation: T = [q, t/s] (maps corrected Sim3
+    keyframe poses back to SE3)."""
+    return se3_make(sim3_quat(S), sim3_trans(S) / sim3_scale(S)[..., None])
+
+
+def _sim3_W(w, sigma):
+    """The Sim3 'W' matrix: integral of exp(sigma u) R(u w) du, which maps
+    tangent translation into group translation. Four branches: general, and
+    the limits of a small angle, a small log-scale, and both."""
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(torch.clamp(theta2, min=_EPS * _EPS))
+    s = sigma
+    es = torch.exp(s)
+    W_ = hat(w)
+    W2 = W_ @ W_
+    small_s = torch.abs(s) < 1e-5
+    small_t = theta2 < 1e-8
+    one = torch.ones_like(s)
+
+    A_ss = torch.where(small_t, 0.5 * one,
+                       (1.0 - torch.cos(theta)) / torch.clamp(theta2, min=_EPS))
+    B_ss = torch.where(
+        small_t, one / 6.0,
+        (theta - torch.sin(theta)) / torch.clamp(theta2 * theta, min=_EPS),
+    )
+
+    denom = s * s + theta2
+    a_gen = es * torch.sin(theta)
+    b_gen = es * torch.cos(theta)
+    C_gen = (es - 1.0) / torch.where(small_s, one, s)
+    A_gen = (a_gen * s + (1.0 - b_gen) * theta) / torch.clamp(theta * denom, min=_EPS)
+    B_gen = (
+        C_gen - ((b_gen - 1.0) * s + a_gen * theta) / torch.clamp(denom, min=_EPS)
+    ) / torch.clamp(theta2, min=_EPS)
+
+    # sigma != 0, theta -> 0 limits
+    A_s0 = torch.where(
+        small_s, A_ss, ((s - 1.0) * es + 1.0) / torch.where(small_s, one, s * s)
+    )
+    B_s0 = torch.where(
+        small_s, B_ss,
+        (es * (0.5 * s * s - s + 1.0) - 1.0) / torch.where(small_s, one, s * s * s),
+    )
+
+    A = torch.where(small_s & small_t, A_ss,
+                    torch.where(small_t, A_s0, torch.where(small_s, A_ss, A_gen)))
+    B = torch.where(small_s & small_t, B_ss,
+                    torch.where(small_t, B_s0, torch.where(small_s, B_ss, B_gen)))
+    C = torch.where(small_s, one, C_gen)
+
+    eye = torch.eye(3, dtype=w.dtype, device=w.device)
+    return C[..., None, None] * eye + A[..., None, None] * W_ + B[..., None, None] * W2
+
+
+def sim3_exp(xi):
+    """sim3 tangent [omega(3), upsilon(3), sigma] -> Sim3 8-vector."""
+    w, v, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    t = torch.einsum("...ij,...j->...i", _sim3_W(w, sigma), v)
+    return torch.cat([so3_exp_quat(w), t, torch.exp(sigma)[..., None]], dim=-1)
+
+
+def sim3_log(S):
+    w = so3_log(sim3_quat(S))
+    sigma = torch.log(torch.clamp(sim3_scale(S), min=_EPS))
+    v = torch.linalg.solve(_sim3_W(w, sigma), sim3_trans(S)[..., None])[..., 0]
+    return torch.cat([w, v, sigma[..., None]], dim=-1)
+
+
+def sim3_retract(S, xi):
+    return sim3_compose(sim3_exp(xi), S)
+
+
+def jacobian_at_zero(fn, n: int, like):
+    """Exact Jacobian at ``xi = 0`` of ``fn``, which maps tangents
+    [..., n] to values [..., m] and broadcasts over leading axes (as every
+    op of this module does): one forward-mode pass over a leading axis of
+    the n unit tangents. ``like`` [*batch, k] gives the batch shape, dtype
+    and device. Returns [*batch, m, n]."""
+    batch = tuple(like.shape[:-1])
+    eye = torch.eye(n, dtype=like.dtype, device=like.device)
+    tangent = eye.reshape((n,) + (1,) * len(batch) + (n,)).expand((n,) + batch + (n,))
+    with fwAD.dual_level():
+        out = fn(fwAD.make_dual(torch.zeros_like(tangent), tangent))
+        primal, jac = fwAD.unpack_dual(out)
+        if jac is None:
+            jac = torch.zeros_like(primal)
+    return jac.movedim(0, -1)

@@ -179,3 +179,39 @@ def match_windowed(
         ok = rotation_consistency(angle_a, angle_b[best_idx], ok)
     ok = _resolve_one_to_one(ok, best_idx, best, uv_b.shape[0])
     return torch.where(ok, best_idx, -1), torch.where(ok, best, _BIG)
+
+
+def _pad_rows(t, n: int):
+    """``t`` with zero rows appended up to ``n`` along its first axis."""
+    if t.shape[0] == n:
+        return t
+    return torch.cat([t, t.new_zeros((n - t.shape[0],) + tuple(t.shape[1:]))])
+
+
+def mutual_match(desc_a, valid_a, desc_b, valid_b, th=TH_LOW, ratio=0.9):
+    """Unconstrained mutual best match between two full descriptor sets.
+
+    Both directions (a->b and b->a) go through one batched
+    ``masked_hamming_best2`` call with every valid pair admitted: an
+    infinite window, all levels 0. Returns (match_idx [Na] into b or -1,
+    match_dist [Na])."""
+    na, nb = desc_a.shape[0], desc_b.shape[0]
+    n = max(na, nb)
+    dev = desc_a.device
+    desc = torch.stack([_pad_rows(_laid_out(desc_a, torch.int32), n),
+                        _pad_rows(_laid_out(desc_b, torch.int32), n)])
+    valid = torch.stack([_pad_rows(_laid_out(valid_a, torch.bool), n),
+                         _pad_rows(_laid_out(valid_b, torch.bool), n)])
+    uv = torch.zeros((2, n, 2), dtype=torch.float32, device=dev)
+    rad = torch.full((2, n), math.inf, dtype=torch.float32, device=dev)
+    lvl = torch.zeros((2, n), dtype=torch.int32, device=dev)
+    bidx, best, second = cuda_kernels.masked_hamming_best2(
+        desc, uv, rad, lvl, valid,
+        desc.flip(0).contiguous(), uv, lvl, valid.flip(0).contiguous(), level_tol=0,
+    )
+    best_idx = bidx[0, :na].to(torch.int64)
+    back_idx = bidx[1].to(torch.int64)
+    best, second = best[0, :na], second[0, :na]
+    ok = _ratio_ok(best, second, th, ratio) & (
+        back_idx[best_idx] == torch.arange(na, device=dev))
+    return torch.where(ok, best_idx, -1), torch.where(ok, best, _BIG)

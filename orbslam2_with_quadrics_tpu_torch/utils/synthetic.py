@@ -127,6 +127,35 @@ def _camera_path(motion: str, u: float, plane_half: float):
         v = min(u / 0.85, 1.0)
         tx = plane_half * np.sin(np.pi * v) ** 2 + 0.05 * max(u - 0.85, 0.0) / 0.15
         return tx, 0.1 * np.sin(4 * np.pi * u), 2.5, 0.0, 0.0
+    if motion == "orbit_big":
+        # LARGE circle (radius plane_half/2) that leaves the start's view
+        # entirely and closes at the end, with a 12% dwell at home so the
+        # loop detector sees several consistent keyframes of the revisited
+        # place: mid-orbit views share nothing with home
+        R = 0.5 * plane_half
+        ang = 2 * np.pi * min(u / 0.88, 1.0)
+        dwell = max(u - 0.88, 0.0) / 0.12
+        return R * np.sin(ang) + 0.06 * dwell, R * (1 - np.cos(ang)), 2.5, 0.0, 0.0
+    if motion == "figure8":
+        # two circular lobes through DISTINCT territory (upper then lower),
+        # each returning to home: two topological loops. Cycloidal easing
+        # gives zero velocity at every junction.
+        R8 = plane_half / 3.0
+
+        def _circ(v):
+            return 2 * np.pi * v - np.sin(2 * np.pi * v)
+
+        if u < 0.42:
+            a = _circ(u / 0.42)
+            tx, ty = R8 * np.sin(a), R8 * (1 - np.cos(a))
+        elif u < 0.5:
+            tx, ty = 0.04 * (u - 0.42) / 0.08, 0.0
+        elif u < 0.92:
+            a = _circ((u - 0.5) / 0.42)
+            tx, ty = 0.04 + R8 * np.sin(a), -R8 * (1 - np.cos(a))
+        else:
+            tx, ty = 0.04 + 0.04 * (u - 0.92) / 0.08, 0.0
+        return tx, ty, 2.5, 0.0, 0.0
     if motion == "survey":
         span = 0.75 * plane_half
         return (span * np.sin(2 * np.pi * 3 * u), (2 * u - 1) * 0.8 * span,

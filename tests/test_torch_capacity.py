@@ -12,7 +12,10 @@ All on the CPU; inputs come from numpy and JAX seeds.
   relative poses within 1e-6, and ``full_trajectory()`` unchanged (1e-5);
 - the capacity run of ``tests/test_system_extended.py:228-273`` (a 10-slot
   keyframe pool) on the port, through the pipelined and the synchronous
-  path, held to that test's own bar; a point pool of 2048 slots under an
+  path, held to that test's own bar, with the keyframe database attached:
+  its rows follow a growth (as many as the map's K) and a compaction (the
+  same permutation; ``loop_edges`` remapped or dropped, ``consistency``
+  emptied), and a protected loop-edge keyframe survives ``cull_keyframes``; a point pool of 2048 slots under an
   RGB-D run (up to 2N = 1024 points per keyframe) must compact or grow;
 - the synchronous path (``ORB_SYNC_TRACK=1`` on both sides) over
   ``tests/test_torch_slice.py``'s mono sequence: the same initialization
@@ -286,6 +289,14 @@ def test_capacity_growth_and_compaction(sync, monkeypatch):
     pool = slam.map.kf_valid.shape[0]
     assert int(slam.map.n_kf) <= pool and (pool > 10) == (slam.n_kf_growths > 0)
     assert slam._protect_mask().shape[0] == pool
+    # the database (the shipped vocabulary, sparse path) follows the pool
+    lcs = slam.loop_closer
+    assert lcs is not None and lcs.sparse
+    assert lcs.words.shape[0] == lcs.kf_wid.shape[0] == lcs.kf_wval.shape[0] == pool
+    live = slam.map.kf_valid.numpy()
+    # every live keyframe inserted after initialization is indexed, no dead row is read
+    indexed = (lcs.words.numpy() >= 0).any(axis=1)
+    assert indexed[live][2:].all()
     traj = slam.full_trajectory()
     assert len(traj) == len(imgs)
     ate, span = ate_and_span(traj, poses)
@@ -293,6 +304,68 @@ def test_capacity_growth_and_compaction(sync, monkeypatch):
     ids, pos = slam.get_tracked_map_points()
     assert len(ids) >= 30 and pos.shape == (len(ids), 3)
     assert slam.get_tracked_keypoints_un().shape[1] == 2
+
+
+def test_compaction_and_growth_carry_the_database():
+    """``_compact_keyframes`` permutes the database rows with the keyframes,
+    remaps or drops ``loop_edges``, empties ``consistency`` and re-anchors
+    ``last_loop_kf``; a keyframe growth extends the rows; a protected
+    loop-edge keyframe survives ``cull_keyframes``."""
+    from orbslam2_with_quadrics_tpu_torch.models import local_mapping as lm
+    from orbslam2_with_quadrics_tpu_torch.models import loop_closing as lc
+    from orbslam2_with_quadrics_tpu_torch.ops import vocab
+
+    jm = culled_keyframe_map()            # slots 0, 2 live; 1 culled
+    _, slam = small_systems()
+    slam.map = ms.map_state_from_numpy(jm)
+    K = slam.map.kf_valid.shape[0]
+    voc = vocab.train(slam.map.kf_desc.reshape(-1, 8)[:192], k=4, levels=2)
+    lcs = slam.loop_closer = lc.LoopCloser(voc, slam.cfg.map)
+    assert not lcs.sparse
+    for s in range(3):
+        lcs.add_keyframe_from_map(slam.map, s)
+    words_before, bow_before = lcs.words.clone(), lcs.bow.clone()
+    lcs.loop_edges = [(2, 0), (2, 1)]     # the second edge ends on the culled slot
+    lcs.consistency = [({0, 2}, 2)]
+    lcs.last_loop_kf = 2
+    slam._pending_loop = (2, None)
+    slam.trajectory = []
+    # protected loop-edge ends survive culling, whatever their redundancy
+    pm = slam._protect_mask()
+    assert pm.tolist() == [True, True, True] + [False] * (K - 3)
+    culled = lm.cull_keyframes(slam.map, torch.tensor(2), pm, n_levels=4)
+    assert bool(culled.kf_valid[0]) and bool(culled.kf_valid[2])
+    # keyframe 1 of a five-keyframe map whose keyframes all see the same
+    # points is redundant: culled when free, kept as a loop edge's end
+    m5 = ms.map_state_from_numpy(make_two_kf_map()[0])
+    for i in range(3):
+        m5, _ = ms.insert_keyframe(
+            m5, m5.kf_pose[1], 2 + i, m5.kf_uv[1], m5.kf_ur[1], m5.kf_level[1],
+            m5.kf_angle[1], m5.kf_desc[1], m5.kf_kp_valid[1], m5.kf_obs_point[1], 1)
+    free = lm.cull_keyframes(m5, torch.tensor(4), None, n_levels=4)
+    assert not bool(free.kf_valid[1])
+    slam.map, lcs.loop_edges = m5, [(4, 1)]
+    kept = lm.cull_keyframes(m5, torch.tensor(4), slam._protect_mask(), n_levels=4)
+    assert bool(kept.kf_valid[1]) and not bool(kept.kf_valid[2])
+    slam.map, lcs.loop_edges = ms.map_state_from_numpy(jm), [(2, 0), (2, 1)]
+    gen = slam._gba_gen
+    slam._compact_keyframes()
+    assert int(slam.map.n_kf) == 2
+    np.testing.assert_array_equal(lcs.words[:2].numpy(), words_before[[0, 2]].numpy())
+    np.testing.assert_array_equal(lcs.bow[:2].numpy(), bow_before[[0, 2]].numpy())
+    np.testing.assert_array_equal(lcs.words[2].numpy(), words_before[1].numpy())
+    assert lcs.loop_edges == [(1, 0)] and lcs.consistency == [] and lcs.last_loop_kf == 1
+    assert slam._pending_loop is None and slam._gba_gen == gen + 1
+    assert slam._protect_mask().tolist() == [True, True] + [False] * (K - 2)
+    # growth: the pool doubles (full, nothing to compact) and the rows follow
+    slam.map = slam.map._replace(kf_valid=torch.ones(K, dtype=torch.bool),
+                                 n_kf=torch.tensor(K, dtype=torch.int32))
+    slam._ensure_capacity()
+    assert slam.n_kf_growths == 1 and slam.map.kf_valid.shape[0] == 2 * K
+    assert lcs.words.shape[0] == lcs.bow.shape[0] == 2 * K
+    np.testing.assert_array_equal(lcs.words[:2].numpy(), words_before[[0, 2]].numpy())
+    assert int(lcs.words[K:].max()) == -1 and float(lcs.bow[K:].abs().max()) == 0.0
+    assert slam._protect_mask().shape[0] == 2 * K
 
 
 def test_point_pool_fills_under_rgbd():

@@ -349,3 +349,113 @@ def test_default_device_rgbd_system_tracks_on_card(cuda_device):
     assert slam.init_frame_id == 0 and len(slam.trajectory) == n
     launches = ck.LAUNCHES["masked_hamming_best2"]
     assert 0 < launches <= 2 * (n - 1) + 2 * slam.n_kfs_created
+
+
+# loop closing's shapes: the loop points into a 13-keyframe covisible group
+# (per-entry targets, radius 4) and into one keyframe (radius 10)
+LOOP_CASES = {
+    "loop_fuse_B13_4096x1024": dict(B=13, Q=4096, N=1024, shared_targets=False),
+    "loop_fuse_B13_4096x2048": dict(B=13, Q=4096, N=2048, shared_targets=False),
+    "loop_proj_B1_4096x1024": dict(B=1, Q=4096, N=1024, shared_targets=False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(LOOP_CASES))
+def test_kernel_matches_plain_at_loop_shapes_on_card(cuda_device, name):
+    kw = dict(LOOP_CASES[name])
+    _, batch = make_batch(kw.pop("B"), kw.pop("Q"), kw.pop("N"), seed=11, **kw)
+    args = to_torch(batch, cuda_device)
+    before = ck.LAUNCHES["masked_hamming_best2"]
+    got = ck.masked_hamming_best2(*args)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["masked_hamming_best2"] == before + 1
+    ref = ck.masked_hamming_best2_plain(*args)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def mutual_inputs(na, nb, seed):
+    rng = np.random.RandomState(seed)
+    a = rng.randint(-2 ** 31, 2 ** 31, (na, 8)).astype(np.int32)
+    b = rng.randint(-2 ** 31, 2 ** 31, (nb, 8)).astype(np.int32)
+    n = min(na, nb) // 2
+    b[:n] = a[rng.permutation(na)[:n]] ^ (1 << rng.randint(0, 31, (n, 8))).astype(np.int32)
+    return (torch.as_tensor(a), torch.as_tensor(rng.rand(na) > 0.1),
+            torch.as_tensor(b), torch.as_tensor(rng.rand(nb) > 0.1))
+
+
+def test_mutual_match_cpu_is_best_two_of_the_full_matrix():
+    """On CPU tensors ``mutual_match`` takes the plain version: it equals
+    ``best_two`` over the whole Hamming matrix in both directions."""
+    from orbslam2_with_quadrics_tpu_torch.ops import matching
+
+    a, va, b, vb = mutual_inputs(96, 130, seed=2)
+    before = dict(ck.LAUNCHES)
+    mi, md = matching.mutual_match(a, va, b, vb, th=matching.TH_HIGH, ratio=0.9)
+    assert ck.LAUNCHES == before
+    ham = matching.hamming_matrix(a, b)
+    mask = va[:, None] & vb[None, :]
+    fi, fb, fs = matching.best_two(ham, mask)
+    bi, _, _ = matching.best_two(ham.T, mask.T)
+    ok = ((fb <= matching.TH_HIGH) & (fb.float() <= 0.9 * fs.float())
+          & (bi[fi] == torch.arange(96)))
+    assert torch.equal(mi, torch.where(ok, fi, -1)) and int(ok.sum()) >= 30
+    assert torch.equal(md, torch.where(ok, fb, 1 << 20).to(md.dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1024, 1024), (2048, 2048), (700, 1024)], ids=str)
+def test_mutual_match_is_one_launch_and_matches_cpu_on_card(cuda_device, shape):
+    from orbslam2_with_quadrics_tpu_torch.ops import matching
+
+    args = mutual_inputs(*shape, seed=4)
+    before = ck.LAUNCHES["masked_hamming_best2"]
+    got = matching.mutual_match(*(t.to(cuda_device) for t in args))
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["masked_hamming_best2"] == before + 1
+    ref = matching.mutual_match(*args)
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+    assert int((ref[0] >= 0).sum()) > shape[0] // 4
+
+
+@pytest.mark.cuda
+def test_default_device_loop_closing_system_on_card(cuda_device):
+    """``System(enable_loop_closing=True, async_gba=True)`` with a default
+    ``MapConfig``: the shipped vocabulary and the database live on the card,
+    keyframes are indexed there, and a kidnapped camera relocalizes through
+    the kernel."""
+    from orbslam2_with_quadrics_tpu_torch.models import frontend as fe
+    from orbslam2_with_quadrics_tpu_torch.models import map_state as ms
+    from orbslam2_with_quadrics_tpu_torch.models import system as sysm
+    from orbslam2_with_quadrics_tpu_torch.utils import synthetic
+
+    h, w, fx = 240, 320, 260.0
+    imgs, _, _ = synthetic.planar_sequence(n_frames=30, h=h, w=w, fx=fx, fy=fx, seed=9,
+                                           relief=True)
+    cfg = sysm.SystemConfig(
+        frontend=fe.FrontendConfig(height=h, width=w, n_features=512, n_levels=4, fx=fx,
+                                   fy=fx, cx=w / 2, cy=h / 2),
+        map=ms.MapConfig(max_keyframes=48, max_points=8192, n_features=512, n_levels=4),
+        max_frames_between_kf=2, enable_loop_closing=True, async_gba=True)
+    assert cfg.map.device == "cuda"
+    slam = sysm.System(cfg)
+    lcs = slam.loop_closer
+    assert lcs.sparse and lcs.kf_wid.is_cuda and lcs.voc.centers[4].is_cuda
+    for i in range(30):
+        slam.track_monocular(imgs[i], timestamp=i / 30.0)
+    slam.shutdown()
+    assert slam.state == sysm.System.OK and int(slam.map.n_kf) > 5
+    assert slam.loop_closer.words.is_cuda and int((slam.loop_closer.words >= 0).sum()) > 0
+    rng = np.random.RandomState(3)
+    for k in range(3):
+        slam.track_monocular(rng.rand(h, w).astype(np.float32) * 255.0, timestamp=1.0 + k)
+    assert slam.state == sysm.System.LOST
+    ck.reset_launch_counts()
+    for i in range(16, 26):
+        slam.track_monocular(imgs[i], timestamp=2.0 + i / 30.0)
+        if slam.state == sysm.System.OK:
+            break
+    slam.shutdown()
+    assert slam.state == sysm.System.OK and ck.LAUNCHES["masked_hamming_best2"] >= 3
