@@ -18,6 +18,10 @@ Phases (any failure exits non-zero before the result line):
   4. place recognition's plain-PyTorch ops (vocabulary descent, sparse BoW
      and database sweep on the shipped vocabulary; Sim3 RANSAC and LM; EPnP
      RANSAC) on the card against the same calls on the CPU, and their times;
+     after the mono path, local BA's two solvers on a window of its map
+     (``ba_solve_dense``, the card's, against the PCG ``ba_solve``: poses
+     within 1e-4, costs within 1e-3 relative; both schedules timed); after
+     the quadric path, ``quadric_ba_solve`` at its edge count, timed;
   5. the port's paths through ``System``, every map tensor on the card, each
      over a synthetic sequence, checked against ground truth, with the
      kernel's launch counts from that run alone (more than 0, at most 2 per
@@ -45,7 +49,14 @@ Phases (any failure exits non-zero before the result line):
                  returns (500 frames, sensor noise 3 grey levels): at least one
                  loop closes, in the second half; ``shutdown()`` applies the
                  background BA; ATE under 6% of the span. Each closure prints
-                 its four gates, the Sim3 scale and the time of every stage.
+                 its four gates, the Sim3 scale and the time of every stage;
+       quadric   ``enable_quadrics`` on the mono path's sequence, each frame
+                 with the box of a virtual ellipsoid (projected by the port's
+                 ``project_bbox`` under the true pose): at least one landmark
+                 initializes, and its boxes re-projected into its keyframes
+                 meet the measured ones at a median IoU above 0.5 over at
+                 least 3 keyframes; joint BA and ``quadric_init`` timed.
+Local BA runs the dense-Schur solver on every path (the map is on the card).
 The orbit's frames render in a worker process during the first phases.
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -463,6 +474,11 @@ PATHS = {
                   fx=520.0, seed=9, relief=True, kidnap=(3, 16, 26),
                   sys_kw=dict(max_frames_between_kf=2),
                   min_tracked=25, min_kf=6, ate_max=0.05, metric=False),
+    # object landmarks on the mono sequence: the virtual ellipsoid of
+    # tests/test_system_extended.py:65-73, its boxes under the true poses
+    "quadric": dict(sensor="mono", h=480, w=640, n_features=1024, n_levels=8, n_frames=60,
+                    fx=520.0, seed=3, sys_kw=dict(enable_quadrics=True),
+                    min_tracked=40, min_kf=3, ate_max=0.05, metric=False, quadric=True),
     # one big orbit that closes organically; the global BA runs on a thread
     "loop": dict(sensor="mono", h=480, w=640, n_features=1024, n_levels=8, n_frames=500,
                  fx=520.0, seed=3, relief=True, motion="orbit_big", plane_half=6.0,
@@ -574,6 +590,60 @@ def _median(xs):
     return float(np.median(xs)) if len(xs) else float("nan")
 
 
+VIRTUAL_OBJECT = dict(pose=[1.0, 0.0, 0.0, 0.0, 0.4, 0.3, 0.6], scale=[0.25, 0.2, 0.15])
+
+
+def object_detections(poses, fx, w, h):
+    """Per frame the [1, 6] detection (x, y, w, h, 0.9, class 1) of
+    ``VIRTUAL_OBJECT`` under the true pose, by the port's ``project_bbox``
+    on the CPU; None where it does not project to an ellipse."""
+    from orbslam2_with_quadrics_tpu_torch.ops import quadrics
+    from orbslam2_with_quadrics_tpu_torch.utils import metrics
+
+    q = quadrics.Quadric(torch.tensor(VIRTUAL_OBJECT["pose"]),
+                         torch.tensor(VIRTUAL_OBJECT["scale"]))
+    Kc = torch.tensor([fx, fx, w / 2.0, h / 2.0])
+    out = []
+    for P in poses:
+        if P is None:
+            out.append(None)
+            continue
+        b, ok = quadrics.project_bbox(
+            q, torch.as_tensor(metrics.mat_to_se3_vec(P), dtype=torch.float32), Kc)
+        b = b.numpy()
+        out.append(np.asarray([[b[0], b[1], b[2] - b[0], b[3] - b[1], 0.9, 1.0]], np.float32)
+                   if bool(ok) else None)
+    return out
+
+
+def box_iou(p, b) -> float:
+    ix = max(0.0, min(p[2], b[2]) - max(p[0], b[0]))
+    iy = max(0.0, min(p[3], b[3]) - max(p[1], b[1]))
+    union = (p[2] - p[0]) * (p[3] - p[1]) + (b[2] - b[0]) * (b[3] - b[1]) - ix * iy
+    return float(ix * iy / max(union, 1e-9))
+
+
+def landmark_ious(slam):
+    """Per initialized landmark, the IoU of its box re-projected into each
+    of its keyframes with the box measured there."""
+    from orbslam2_with_quadrics_tpu_torch.ops import quadrics
+
+    out = []
+    kf_pose = slam.map.kf_pose.cpu()
+    Kc = slam._K.cpu()
+    for lmk in slam.quadrics.landmarks:
+        if not lmk.initialized:
+            continue
+        q = quadrics.Quadric(torch.as_tensor(lmk.pose), torch.as_tensor(lmk.scale))
+        ious = []
+        for slot, meas in zip(lmk.kf_slots, lmk.bboxes):
+            b, ok = quadrics.project_bbox(q, kf_pose[slot], Kc)
+            if bool(ok):
+                ious.append(box_iou(b.numpy(), meas))
+        out.append(ious)
+    return out
+
+
 def run_main_path(name="mono", device="cuda", sync=False, log_every=5, rendered=None,
                   **overrides):
     """Drive one of ``PATHS`` through ``System.track_*`` (``overrides``
@@ -588,14 +658,20 @@ def run_main_path(name="mono", device="cuda", sync=False, log_every=5, rendered=
     from orbslam2_with_quadrics_tpu_torch.ops import cuda_kernels as ck
     from orbslam2_with_quadrics_tpu_torch.ops import matching
 
+    from orbslam2_with_quadrics_tpu_torch.models import quadric_mapping as qm
+    from orbslam2_with_quadrics_tpu_torch.ops import quadrics
+
     spec = {**PATHS[name], **overrides}
     bar = {k: spec.pop(k, None) for k in ("min_tracked", "min_kf", "ate_max", "metric",
-                                          "scale_free", "capacity", "loop")}
+                                          "scale_free", "capacity", "loop", "quadric")}
     kidnap = spec.get("kidnap")
     tag = name + ("-sync" if sync else "")
     spec.setdefault("n_frames", 60)
     cfg, frames, poses = main_path_setup(device, rendered=rendered, **spec)
     cuda = device == "cuda"
+    dets = (object_detections(poses, cfg.frontend.fx, cfg.frontend.width, cfg.frontend.height)
+            if bar["quadric"] else [None] * len(frames))
+    quad_ms = {"joint_ba": [], "quadric_init": []}  # host ms, device drained
     map_events = []
     n_calls = {"frames": 0, "map_passes": 0, "mutual_match": 0, "loop_proj": 0,
                "loop_fuse": 0}
@@ -609,7 +685,9 @@ def run_main_path(name="mono", device="cuda", sync=False, log_every=5, rendered=
     originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patched]
     originals += [(sysm, "_insert_and_map", sysm._insert_and_map),
                   (sysm.System, "_insert_keyframe", sysm.System._insert_keyframe),
-                  (sysm.System, "_relocalize", sysm.System._relocalize)]
+                  (sysm.System, "_relocalize", sysm.System._relocalize),
+                  (qm.QuadricManager, "joint_ba", qm.QuadricManager.joint_ba),
+                  (quadrics, "quadric_init", quadrics.quadric_init)]
 
     def counted(fn, key):
         def call(*a, **k):
@@ -643,8 +721,22 @@ def run_main_path(name="mono", device="cuda", sync=False, log_every=5, rendered=
                        "launches": ck.LAUNCHES["masked_hamming_best2"] - n0})
         return ok
 
+    def host_timed(fn, key):
+        def call(*a, **k):
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            if cuda:
+                torch.cuda.synchronize()
+            quad_ms[key].append(1e3 * (time.perf_counter() - t0))
+            return out
+        return call
+
     for mod, attr, key in patched:
         setattr(mod, attr, counted(getattr(mod, attr), key))
+    qm.QuadricManager.joint_ba = host_timed(qm.QuadricManager.joint_ba, "joint_ba")
+    quadrics.quadric_init = host_timed(quadrics.quadric_init, "quadric_init")
     sysm._insert_and_map = timed(sysm._insert_and_map)
     sysm.System._insert_keyframe = timed(sysm.System._insert_keyframe)
     sysm.System._relocalize = timed_relocalize
@@ -664,7 +756,7 @@ def run_main_path(name="mono", device="cuda", sync=False, log_every=5, rendered=
                 traj_before = slam.full_trajectory()  # the map before the kidnap
             t = time.perf_counter()
             before = slam.n_loops_closed
-            step(*images, timestamp=i / 30.0)
+            step(*images, timestamp=i / 30.0, detections=dets[i])
             if cuda:
                 torch.cuda.synchronize()
             dt = (time.perf_counter() - t) * 1e3
@@ -719,7 +811,21 @@ def run_main_path(name="mono", device="cuda", sync=False, log_every=5, rendered=
         "n_reloc_corrections": slam.n_reloc_corrections,
         "n_gba_applied": slam.n_gba_applied, "relocalizations": relocs,
     }
+    if bar["quadric"]:
+        lms = slam.quadrics.landmarks
+        ious = landmark_ious(slam)
+        out["quadric"] = {
+            "landmarks": len(lms), "initialized": sum(lmk.initialized for lmk in lms),
+            "bbox_edges": sum(len(lmk.kf_slots) for lmk in lms if lmk.initialized),
+            "views": [len(lmk.kf_slots) for lmk in lms],
+            "frames_with_detection": sum(d is not None for d in dets),
+            "iou_median": [_median(v) for v in ious], "iou_n": [len(v) for v in ious],
+            "joint_ba_ms_median": _median(quad_ms["joint_ba"]),
+            "joint_ba_calls": len(quad_ms["joint_ba"]),
+            "quadric_init_ms": quad_ms["quadric_init"],
+        }
     log(f"[{tag}] {json.dumps(out)}")
+    out["slam"] = slam
     if traced:
         for rec in trace:
             if "gates" in rec:  # one closure attempt: gates, scale, ms per stage
@@ -765,6 +871,12 @@ def run_main_path(name="mono", device="cuda", sync=False, log_every=5, rendered=
         if cuda:
             checks.append((sum(r["launches"] for r in relocs) > 0,
                            "kernel launches inside _relocalize"))
+    if bar["quadric"]:
+        q = out["quadric"]
+        checks.append((q["initialized"] >= 1, f"a landmark initialized ({q})"))
+        checks.append((any(n >= 3 and med > 0.5 for n, med in zip(q["iou_n"], q["iou_median"])),
+                       "an initialized landmark re-projects onto >= 3 of its boxes at a median "
+                       "IoU > 0.5"))
     if bar["loop"]:
         checks += [
             (slam.n_loops_closed >= 1, "at least one loop closed"),
@@ -794,6 +906,102 @@ def run_main_path(name="mono", device="cuda", sync=False, log_every=5, rendered=
     return out
 
 
+def phase_dense_ba(mono, smi):
+    """Local BA's two solvers on the card, on the last keyframe's window of
+    the mono path's map (the free poses and points moved off the optimum
+    from a seed): 6 plain LM steps of the dense-Schur ``ba_solve_dense``
+    (the card's local BA) against the PCG ``ba_solve`` on its edges purged
+    by ``edge_chi2`` and with a second camera held (the window's live
+    keyframes have no fixed boundary camera, and the monocular scale is a
+    gauge freedom that each solver would leave wherever its rounding takes
+    it), then both local-BA schedules (4 Huber steps, the purge, 6 plain
+    steps) timed on the problem as the path builds it."""
+    from orbslam2_with_quadrics_tpu_torch.models import local_mapping as lm
+    from orbslam2_with_quadrics_tpu_torch.ops import ba, lie
+
+    slam = mono["slam"]
+    m = slam.map
+    dev = m.pt_pos.device
+    slot = torch.tensor(slam.ref_kf, device=dev)
+    prob0, _, cam_ok, g_obs, _ = lm.local_ba_problem(
+        m, slot, slam._K, float(slam.cfg.frontend.bf), slam._inv_sigma2,
+        window=slam.cfg.local_ba_window)
+    C, N = g_obs.shape
+    P = m.pt_pos.shape[0]
+    L = min(P, 8192)
+    g = torch.Generator(device=dev).manual_seed(0)
+    free_c = (1.0 - prob0.fixed_cam)[:, None]
+    free_p = (1.0 - prob0.fixed_pnt)[:, None]
+    prob0 = prob0._replace(
+        poses=lie.se3_retract(prob0.poses, 2e-3 * free_c * torch.randn(
+            (C, 6), generator=g, device=dev)),
+        points=prob0.points + 5e-3 * free_p * torch.randn((P, 3), generator=g, device=dev))
+    _, inl = ba.edge_chi2(prob0)
+    held = prob0.fixed_cam.clone()
+    held[torch.nonzero(held < 0.5)[0, 0]] = 1.0
+    prob = prob0._replace(valid=prob0.valid * inl.to(torch.float32), fixed_cam=held)
+    loc_ids, _ = ba._local_point_table(prob, L, (C, N))
+    n_local = int((loc_ids < P).sum())
+    pcg, c_pcg = ba.ba_solve(prob, n_iters=6, cg_iters=40, use_huber=False)
+    den, c_den = ba.ba_solve_dense(prob, n_iters=6, n_local_pts=L, use_huber=False,
+                                   cam_grid=(C, N))
+    c0 = float(ba._cost_grid(prob, prob.poses, prob.points, 0.0, (C, N)))
+    err = float((den.poses - pcg.poses).abs().max())
+    rel = abs(float(c_den) - float(c_pcg)) / max(float(c_pcg), 1.0)
+    t = {"ba_solve_dense_ms": wall_ms(lambda: ba.ba_solve_dense(
+             prob, n_iters=6, n_local_pts=L, use_huber=False, cam_grid=(C, N))),
+         "ba_solve_ms": wall_ms(lambda: ba.ba_solve(prob, n_iters=6, cg_iters=40,
+                                                    use_huber=False)),
+         "dense_schedule_ms": wall_ms(lambda: lm._dense_schedule(prob0, (C, N), 4, 6)),
+         "pcg_schedule_ms": wall_ms(lambda: lm._schedule(prob0, 4, 6))}
+    log(f"[solver] local BA on the mono map's window: C = {C} cameras "
+        f"({int(cam_ok.sum())} live, {int((prob.fixed_cam < 0.5).sum())} free in the "
+        f"comparison), N = {N}, "
+        f"P = {P}, L = {L} ({n_local} local points), {int(prob.valid.sum())} inlier edges; "
+        f"cost {c0:.2f} -> dense {float(c_den):.4f} / PCG {float(c_pcg):.4f} (relative "
+        f"{rel:.2e}), poses within {err:.2e}; 6 LM steps: ba_solve_dense "
+        f"{t['ba_solve_dense_ms']:.2f} ms, ba_solve {t['ba_solve_ms']:.2f} ms; schedule 4 + 6: "
+        f"dense {t['dense_schedule_ms']:.2f} ms, PCG {t['pcg_schedule_ms']:.2f} ms ({smi})")
+    if not (err <= 1e-4 and rel <= 1e-3 and float(c_den) < c0):
+        raise AssertionError(f"ba_solve_dense disagrees with ba_solve on the card: poses {err}, "
+                             f"cost {rel}")
+    return t
+
+
+def phase_quadric_ba(run, smi):
+    """``quadric_ba_solve`` (8 LM steps of 40 CG steps, as ``joint_ba``) on
+    the quadric path's final map and landmarks, and again with its free
+    keyframe poses and points moved off that state from a seed (the cost
+    must fall), timed."""
+    from orbslam2_with_quadrics_tpu_torch.ops import lie, quadrics, residuals
+
+    slam = run["slam"]
+    prob = slam.quadrics.ba_problem(slam.map, slam._inv_sigma2)
+    if prob is None:
+        raise AssertionError("the quadric path ended with no bbox edge")
+    base = prob.base
+    dev = base.points.device
+    g = torch.Generator(device=dev).manual_seed(0)
+    moved = prob._replace(base=base._replace(
+        poses=lie.se3_retract(base.poses, 1e-3 * (1.0 - base.fixed_cam)[:, None] * torch.randn(
+            base.poses.shape[:1] + (6,), generator=g, device=dev)),
+        points=base.points + 2e-3 * (1.0 - base.fixed_pnt)[:, None] * torch.randn(
+            base.points.shape, generator=g, device=dev)))
+    costs = []
+    for p in (prob, moved):
+        c0 = float(quadrics._quadric_cost(p, slam._K, residuals.CHI2_STEREO)[0])
+        costs.append((c0, float(quadrics.quadric_ba_solve(p, slam._K, n_iters=8)[1])))
+    ms_ = wall_ms(lambda: quadrics.quadric_ba_solve(moved, slam._K, n_iters=8))
+    log(f"[solver] quadric_ba_solve: {prob.qe_cam.numel()} bbox edges of "
+        f"{prob.quad_pose.shape[0]} landmarks, {int(base.valid.sum())} point edges over "
+        f"{base.poses.shape[0]} keyframe slots: {ms_:.2f} ms; cost from the path's final state "
+        f"{costs[0][0]:.3f} -> {costs[0][1]:.3f}, moved off it {costs[1][0]:.3f} -> "
+        f"{costs[1][1]:.3f} ({smi})")
+    if not (all(np.isfinite(c) and c <= c0 for c0, c in costs) and costs[1][1] < costs[1][0]):
+        raise AssertionError(f"quadric_ba_solve on the card: costs {costs}")
+    return ms_
+
+
 def main() -> int:
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda}")
     if not torch.cuda.is_available():
@@ -818,9 +1026,12 @@ def main() -> int:
         max_err, times = phase_kernels(smi)
         phase_solvers(smi)
         runs = [run_main_path("capacity"), run_main_path("capacity", sync=True),
-                run_main_path("mono"), run_main_path("rgbd"), run_main_path("stereo"),
-                run_main_path("reloc"),
-                run_main_path("loop", log_every=50, rendered=orbit.result())]
+                run_main_path("mono")]
+        phase_dense_ba(runs[-1], smi)
+        runs += [run_main_path("rgbd"), run_main_path("stereo"), run_main_path("quadric")]
+        phase_quadric_ba(runs[-1], smi)
+        runs += [run_main_path("reloc"),
+                 run_main_path("loop", log_every=50, rendered=orbit.result())]
     by_path = {}
     for res in runs:
         n = res["launches"]["masked_hamming_best2"]
@@ -829,6 +1040,13 @@ def main() -> int:
             f"pass {res['map_ms_median']:.2f} ms; {n} kernel launches over "
             f"{res['n_frame_steps']} tracked frames and {res['n_map_passes']} mapping "
             f"passes ({smi})")
+        if "quadric" in res:
+            q = res["quadric"]
+            log(f"[{res['path']}] {q['landmarks']} landmarks, {q['initialized']} initialized, "
+                f"{q['bbox_edges']} bbox edges; joint_ba median {q['joint_ba_ms_median']:.2f} ms "
+                f"over {q['joint_ba_calls']} keyframes; quadric_init ms "
+                f"{[round(x, 2) for x in q['quadric_init_ms']]}; median IoU {q['iou_median']} "
+                f"over {q['iou_n']} keyframes ({smi})")
         log(smi)
     mono = next(r for r in runs if r["path"] == "mono")
     per_frame = ((by_path["mono"] - 2 * mono["n_map_passes"])

@@ -4,7 +4,10 @@ Counterpart of the reference's ``models/local_mapping.py``: each stage is
 a pure function MapState -> MapState, called in LocalMapping::Run's order
 (ProcessNewKeyFrame -> MapPointCulling -> CreateNewMapPoints ->
 SearchInNeighbors -> LocalBA -> KeyFrameCulling). Local BA takes the
-segment-sum PCG solver (``ops/ba.py``).
+dense-Schur Cholesky solver (``ops/ba.ba_solve_dense``) when the map is on
+the card, as the reference does on its accelerator, and the segment-sum PCG
+solver (``ops/ba.ba_solve``) on the CPU, as the reference does there;
+global BA always takes PCG.
 """
 
 from __future__ import annotations
@@ -316,6 +319,18 @@ def _schedule(prob, first_iters: int, second_iters: int):
     return ba.ba_solve(prob, n_iters=second_iters, cg_iters=40, use_huber=False)
 
 
+def _dense_schedule(prob, cam_grid, first_iters: int, second_iters: int):
+    """``_schedule`` with the dense-Schur solver over a cam-major [C, N]
+    edge table, at most 8192 points coupling the cameras."""
+    n_loc = min(prob.points.shape[0], 8192)
+    prob, _ = ba.ba_solve_dense(prob, n_iters=first_iters, n_local_pts=n_loc,
+                                use_huber=True, cam_grid=cam_grid)
+    _, inl = ba.edge_chi2(prob)
+    prob = prob._replace(valid=prob.valid * inl.to(torch.float32))
+    return ba.ba_solve_dense(prob, n_iters=second_iters, n_local_pts=n_loc,
+                             use_huber=False, cam_grid=cam_grid)
+
+
 def run_global_ba(m: ms.MapState, Kc, bf, inv_sigma2_tab, n_iters: int = 10):
     """Global BA: every valid keyframe free (keyframe 0 fixed as gauge) and
     every valid point free, over the full [K,N] observation table."""
@@ -337,12 +352,13 @@ def run_global_ba(m: ms.MapState, Kc, bf, inv_sigma2_tab, n_iters: int = 10):
     return m._replace(kf_pose=kf_pose, pt_pos=pt_pos), cost
 
 
-def run_local_ba(m: ms.MapState, kf_id, Kc, bf, inv_sigma2_tab, window: int = 16,
-                 n_iters: int = 10, boundary: int = 32, W=None):
-    """Local BA over the covisibility window of ``kf_id``: the top
-    ``window`` covisible keyframes + itself free, up to ``boundary`` fixed
-    keyframes that co-observe the window's points, the window's points free.
-    Outlier observations of the gathered rows are dropped afterwards."""
+def local_ba_problem(m: ms.MapState, kf_id, Kc, bf, inv_sigma2_tab, window: int = 16,
+                     boundary: int = 32, W=None):
+    """The local BA problem of ``kf_id``: the top ``window`` covisible
+    keyframes + itself free, up to ``boundary`` fixed keyframes that
+    co-observe the window's points, the window's points free; a cam-major
+    [C, N] edge table. Returns (prob, cams [C], cam_ok [C], g_obs [C,N],
+    g_ok [C,N])."""
     K, N = m.kf_obs_point.shape
     P = m.pt_pos.shape[0]
     dev = m.pt_pos.device
@@ -388,10 +404,25 @@ def run_local_ba(m: ms.MapState, kf_id, Kc, bf, inv_sigma2_tab, window: int = 16
         inv_sigma2=is2, valid=g_ok.reshape(-1).to(torch.float32),
         fixed_cam=fixed_cam, fixed_pnt=(~seen).to(torch.float32),
     )
-    prob, cost = _schedule(prob, 4, min(n_iters, 6))
+    return prob, cams, cam_ok, g_obs, g_ok
+
+
+def run_local_ba(m: ms.MapState, kf_id, Kc, bf, inv_sigma2_tab, window: int = 16,
+                 n_iters: int = 10, boundary: int = 32, W=None):
+    """Local BA over the covisibility window of ``kf_id``
+    (``local_ba_problem``); outlier observations of the gathered rows are
+    dropped afterwards."""
+    prob, cams, cam_ok, g_obs, g_ok = local_ba_problem(m, kf_id, Kc, bf, inv_sigma2_tab,
+                                                       window, boundary, W)
+    C, N = g_obs.shape
+    # the device decides the solver, as the backend does in the reference
+    if m.pt_pos.device.type == "cuda":
+        prob, cost = _dense_schedule(prob, (C, N), 4, min(n_iters, 6))
+    else:
+        prob, cost = _schedule(prob, 4, min(n_iters, 6))
 
     # scatter back: free deduped window poses, all points
-    upd = cam_ok & (fixed_cam < 0.5)
+    upd = cam_ok & (prob.fixed_cam < 0.5)
     kf_pose = ms.set_rows(m.kf_pose, cams, prob.poses, upd)
     _, inl2 = ba.edge_chi2(prob._replace(valid=g_ok.reshape(-1).to(torch.float32)))
     g_obs_new = torch.where(g_ok & ~inl2.reshape(C, N), -1, g_obs).to(torch.int32)

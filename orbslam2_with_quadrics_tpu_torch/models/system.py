@@ -19,8 +19,10 @@ re-tracking), and with ``enable_loop_closing`` each keyframe is checked for
 a loop one keyframe later (``_run_loop_closing``); a closure is followed by
 a global BA, inline or (``async_gba``) on a thread with its own CUDA stream.
 
-Not ported yet: quadric landmarks raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+With ``enable_quadrics`` each keyframe's object detections (the
+``detections`` argument of ``track_*``) are associated with dual-quadric
+landmarks, which are SVD-initialized and refined by a joint
+camera-point-quadric BA (``quadric_mapping.QuadricManager``).
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from . import local_mapping as lm
 from . import loop_closing as lc
 from . import map_state as ms
 from . import tracking as tr
+from .quadric_mapping import QuadricManager
 
 
 @dataclasses.dataclass
@@ -77,17 +80,13 @@ class SystemConfig:
                                     # training when no asset exists; None =
                                     # always lazy
     enable_quadrics: bool = False
+    quadric_min_points: int = 15    # landmark validity gate (member points)
     async_gba: bool = False         # run the post-loop global BA in a
                                     # background thread, with spanning-tree
                                     # propagation to keyframes / points
                                     # created meanwhile; False = inline
     n_local_kf: int = 64            # local-map window
     n_local_pt: int = 4096          # local point budget for tracking
-
-
-_NOT_PORTED = {
-    "enable_quadrics": "quadric object landmarks (ROADMAP queue 1 item 13)",
-}
 
 
 def _default_vocab_asset() -> Optional[str]:
@@ -117,8 +116,6 @@ class System:
             raise ValueError(
                 f"sensor={cfg.sensor!r} requires frontend.bf > 0 (fx * baseline); "
                 f"got bf={cfg.frontend.bf}")
-        if cfg.enable_quadrics:
-            raise NotImplementedError(_NOT_PORTED["enable_quadrics"])
         self.cfg = cfg
         self.device = torch.device(cfg.map.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -177,6 +174,10 @@ class System:
         # big-change counter for map_changed()
         self._big_change_idx = 0
         self._last_big_change_idx = 0
+        # quadric object landmarks; detections of the frame being tracked
+        self.quadrics = (QuadricManager(self._K, min_points=cfg.quadric_min_points)
+                         if cfg.enable_quadrics else None)
+        self._pending_detections = None
         self.reset()
 
     # ------------------------------------------------------------------
@@ -196,10 +197,11 @@ class System:
 
     def track_monocular(self, img, timestamp=0.0, detections=None):
         """Track one grayscale frame (numpy array or tensor, any integer or
-        float dtype). Returns the frame's T_cw [7]."""
+        float dtype). ``detections``: optional [D,6] (x, y, w, h, prob,
+        class) object boxes for the quadric landmarks (kept if the frame
+        becomes a keyframe). Returns the frame's T_cw [7]."""
         assert self.cfg.sensor == "mono", "called track_monocular but sensor is not mono"
-        if detections is not None:
-            raise NotImplementedError(_NOT_PORTED["enable_quadrics"])
+        self._pending_detections = detections
         img = self._upload(img)
         if self._fast():
             return self._track_fast(img, None, timestamp)
@@ -211,8 +213,7 @@ class System:
         """Track one grayscale frame with its registered depth map (any
         dtype; multiplied by ``depth_factor``). Returns T_cw [7]."""
         assert self.cfg.sensor == "rgbd", "called track_rgbd but sensor is not rgbd"
-        if detections is not None:
-            raise NotImplementedError(_NOT_PORTED["enable_quadrics"])
+        self._pending_detections = detections
         img, depth = self._upload(img), self._upload(depth)
         if self._fast():
             return self._track_fast(img, depth, timestamp)
@@ -223,8 +224,7 @@ class System:
     def track_stereo(self, img_l, img_r, timestamp=0.0, detections=None):
         """Track one rectified stereo pair. Returns the left camera's T_cw [7]."""
         assert self.cfg.sensor == "stereo", "called track_stereo but sensor is not stereo"
-        if detections is not None:
-            raise NotImplementedError(_NOT_PORTED["enable_quadrics"])
+        self._pending_detections = detections
         img_l, img_r = self._upload(img_l), self._upload(img_r)
         if self._fast():
             return self._track_fast(img_l, img_r, timestamp)
@@ -311,6 +311,8 @@ class System:
             self.loop_closer = lc.LoopCloser(self._pretrained_voc, cfg.map)
         self._vocab_pool = []
         self._pending_loop = None  # (slot, prefetched detect arrays)
+        if self.quadrics is not None:
+            self.quadrics.landmarks = []
         # abandon any in-flight global BA (its snapshot is now meaningless)
         with self._gba_lock:
             self._gba_gen += 1
@@ -718,6 +720,7 @@ class System:
         self._pend = {
             "frame_id": self.frame_id, "ts": timestamp, "stats": _HostCopy(stats),
             "feats": feats, "obs": obs_new, "T": T_new, "ref_kf": self.ref_kf,
+            "detections": self._pending_detections,
         }
         self.frame_id += 1
         if prev is not None:
@@ -914,6 +917,18 @@ class System:
         self._index_keyframe(p["feats"], slot)
         if cfg.enable_loop_closing and self.loop_closer is not None:
             self._run_loop_closing(slot)
+        self._map_quadrics(slot, p["detections"])
+
+    def _map_quadrics(self, slot: int, detections):
+        """The keyframe's detections -> association, init, joint BA (which
+        replaces ``self.map``; an async global BA's merge never writes it)."""
+        q = self.quadrics
+        if q is None or detections is None:
+            return
+        q.add_keyframe_detections(self.map, slot, detections)
+        q.try_initialize(self.map)
+        if any(lmk.initialized for lmk in q.landmarks):
+            self.map = q.joint_ba(self.map, self._inv_sigma2)
 
     def _ref_kf_tracked(self, min_obs: int) -> int:
         """KeyFrame::TrackedMapPoints(minObs) of the reference keyframe."""
@@ -1003,6 +1018,7 @@ class System:
         self._index_keyframe(feats, self.ref_kf)
         if cfg.enable_loop_closing and self.loop_closer is not None:
             self._close_loops(self.ref_kf, self.loop_closer.detect(self.map, self.ref_kf))
+        self._map_quadrics(self.ref_kf, self._pending_detections)
         # adopt the BA-refined pose and the surviving observations
         self.T_cw = self.map.kf_pose[self.ref_kf]
         self.prev_obs = self.map.kf_obs_point[self.ref_kf]
@@ -1137,6 +1153,12 @@ class System:
             lcs.last_loop_kf = (
                 int(new_idx[lcs.last_loop_kf])
                 if 0 <= lcs.last_loop_kf < K and kf_valid[lcs.last_loop_kf] else -999)
+        if self.quadrics is not None:
+            for lmk in self.quadrics.landmarks:
+                kept = [(int(new_idx[s]), b) for s, b in zip(lmk.kf_slots, lmk.bboxes)
+                        if 0 <= s < K and kf_valid[s]]
+                lmk.kf_slots = [s for s, _ in kept]
+                lmk.bboxes = [b for _, b in kept]
         self._pending_loop = None  # its slot and scores predate the remap
         with self._gba_lock:
             self._gba_gen += 1
@@ -1144,8 +1166,8 @@ class System:
 
     def _remap_point_ids(self, new_idx, old_valid):
         """Point-id fixup after ``compact_points`` for the ids held outside
-        the MapState: the last frame's observations, the pipelined frame and
-        the frame awaiting insertion."""
+        the MapState: the last frame's observations, the pipelined frame,
+        the frame awaiting insertion and the quadric landmarks' members."""
         P = old_valid.shape[0]
 
         def remap(obs):
@@ -1158,6 +1180,10 @@ class System:
             self._pend["obs"] = remap(self._pend["obs"])
         for holder in self._extra_obs_holders:
             holder["obs"] = remap(holder["obs"])
+        if self.quadrics is not None:
+            valid, idx = old_valid.cpu().numpy(), new_idx.cpu().numpy()
+            for lmk in self.quadrics.landmarks:
+                lmk.point_ids = {int(idx[p]) for p in lmk.point_ids if p < P and valid[p]}
 
     # ------------------------------------------------------------------
     # initialization

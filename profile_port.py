@@ -1,11 +1,12 @@
 """Per-stage profile of one of the port's paths on one CUDA card.
 
-    python3 profile_port.py [--path mono|rgbd|stereo] [--frames N]
+    python3 profile_port.py [--path mono|rgbd|stereo|quadric] [--frames N]
                             [--warmup 20] [--profiled 12]
 
 Runs one of ``chip_smoke.PATHS`` (mono: 640x480, 1024 features, 8 levels,
 default map pools, 60 frames; stereo: 1226x370, 2048 features, 30 frames;
-map on ``cuda``) through ``System.track_*`` in three windows:
+quadric: mono with ``enable_quadrics`` and the virtual object's boxes; map
+on ``cuda``) through ``System.track_*`` in three windows:
 
 1. frames ``[0, warmup)`` run without instrumentation (initialization,
    the kernel build, allocator warm-up);
@@ -43,10 +44,11 @@ import chip_smoke  # noqa: E402
 from orbslam2_with_quadrics_tpu_torch.models import frontend as fe  # noqa: E402
 from orbslam2_with_quadrics_tpu_torch.models import local_mapping as lm  # noqa: E402
 from orbslam2_with_quadrics_tpu_torch.models import map_state as ms  # noqa: E402
+from orbslam2_with_quadrics_tpu_torch.models import quadric_mapping as qm  # noqa: E402
 from orbslam2_with_quadrics_tpu_torch.models import system as sysm  # noqa: E402
 from orbslam2_with_quadrics_tpu_torch.models import tracking as tr  # noqa: E402
 from orbslam2_with_quadrics_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
-from orbslam2_with_quadrics_tpu_torch.ops import matching, orb, stereo  # noqa: E402
+from orbslam2_with_quadrics_tpu_torch.ops import ba, matching, orb, quadrics, stereo  # noqa: E402
 
 # the stages, from the per-frame / per-keyframe programs down; each is
 # looked up through its module at call time, so patching the module
@@ -60,7 +62,9 @@ STAGES = [
     (ck, "masked_hamming_best2"),
     (sysm, "_insert_and_map"), (sysm, "_create_depth_points"), (lm, "cull_points"),
     (lm, "create_new_points"),
-    (lm, "fuse_neighbors"), (lm, "run_local_ba"), (lm, "cull_keyframes"),
+    (lm, "fuse_neighbors"), (lm, "run_local_ba"), (ba, "ba_solve_dense"),
+    (lm, "cull_keyframes"), (qm.QuadricManager, "joint_ba"),
+    (quadrics, "quadric_ba_solve"), (quadrics, "quadric_init"),
     (ms, "update_point_stats"), (ms, "covisibility"), (ms, "observation_matrix"),
     (ms, "obs_level_cum"),
 ]
@@ -133,7 +137,7 @@ def analyse(prof, wall_ms, n_frames):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("mono", "rgbd", "stereo"), default="mono")
+    ap.add_argument("--path", choices=("mono", "rgbd", "stereo", "quadric"), default="mono")
     ap.add_argument("--frames", type=int, default=None,
                     help="default: the path's own count in chip_smoke.PATHS")
     ap.add_argument("--warmup", type=int, default=None,
@@ -151,13 +155,16 @@ def main() -> int:
     print(f"[env] torch {torch.__version__}; {smi}", flush=True)
 
     spec = {k: v for k, v in chip_smoke.PATHS[args.path].items()
-            if k not in ("min_tracked", "min_kf", "ate_max", "metric", "scale_free")}
+            if k not in ("min_tracked", "min_kf", "ate_max", "metric", "scale_free", "quadric")}
     if args.frames is not None:
         spec["n_frames"] = args.frames
     args.frames = spec["n_frames"]
     if args.warmup is None:
         args.warmup = args.frames // 3
     cfg, frames, poses = chip_smoke.main_path_setup(**spec)
+    dets = (chip_smoke.object_detections(poses, cfg.frontend.fx, cfg.frontend.width,
+                                         cfg.frontend.height)
+            if chip_smoke.PATHS[args.path].get("quadric") else [None] * args.frames)
     mode, host_ms = {"m": None}, {}
     originals = instrument(mode, host_ms)
     p0, p1 = args.warmup, min(args.warmup + args.profiled, args.frames)
@@ -166,19 +173,19 @@ def main() -> int:
         step = getattr(slam, {"mono": "track_monocular", "rgbd": "track_rgbd",
                               "stereo": "track_stereo"}[cfg.sensor])
         for i in range(p0):
-            step(*frames[i], timestamp=i / 30.0)
+            step(*frames[i], timestamp=i / 30.0, detections=dets[i])
         torch.cuda.synchronize()
         mode["m"] = "profile"
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
             for i in range(p0, p1):
-                step(*frames[i], timestamp=i / 30.0)
+                step(*frames[i], timestamp=i / 30.0, detections=dets[i])
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t) * 1e3
         mode["m"] = "sync"
         for i in range(p1, args.frames):
-            step(*frames[i], timestamp=i / 30.0)
+            step(*frames[i], timestamp=i / 30.0, detections=dets[i])
         mode["m"] = None
         traj = slam.full_trajectory()
     finally:

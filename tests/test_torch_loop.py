@@ -428,7 +428,7 @@ def test_gba_after_point_compaction_applies_poses_only(drifted):
 def test_system_constructs_with_the_shipped_vocabulary():
     """``enable_loop_closing`` and ``async_gba`` no longer raise, the shipped
     100k-word vocabulary loads from the port's own tree and takes the sparse
-    path; quadrics still raise with their ROADMAP item."""
+    path; ``enable_quadrics`` constructs too (nothing raises any more)."""
     base = dict(
         frontend=fe.FrontendConfig(height=120, width=160, n_features=128, n_levels=4,
                                    fx=130.0, fy=130.0, cx=80.0, cy=60.0),
@@ -448,9 +448,9 @@ def test_system_constructs_with_the_shipped_vocabulary():
         assert callable(getattr(slam, name))
     slam.reset()
     assert slam.loop_closer is not lcs and slam.loop_closer.voc is lcs.voc
-    with pytest.raises(NotImplementedError, match="item 13"):
-        sysm.System(sysm.SystemConfig(enable_quadrics=True, **base))
-    assert "enable_quadrics" in sysm._NOT_PORTED and len(sysm._NOT_PORTED) == 1
+    quad = sysm.System(sysm.SystemConfig(enable_quadrics=True, **base))
+    assert quad.quadrics is not None and quad.quadrics.landmarks == []
+    assert not hasattr(sysm, "_NOT_PORTED")
     # the shipped vocabulary gives the reference's words
     rng = np.random.RandomState(0)
     desc = rng.randint(0, 2 ** 32, size=(128, 8), dtype=np.uint64).astype(np.uint32)
