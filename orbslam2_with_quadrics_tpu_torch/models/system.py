@@ -32,6 +32,7 @@ import glob
 import os
 import sys
 import threading
+import time
 from typing import Optional
 
 import numpy as np
@@ -39,7 +40,7 @@ import torch
 
 from ..ops import camera, init2view, lie, matching, orb, pnp
 from ..ops import vocab as vocab_mod
-from ..utils import metrics
+from ..utils import metrics, trajectory
 from . import frontend as fe
 from . import local_mapping as lm
 from . import loop_closing as lc
@@ -248,6 +249,100 @@ class System:
         changed = self._big_change_idx != self._last_big_change_idx
         self._last_big_change_idx = self._big_change_idx
         return changed
+
+    def warmup(self, verbose: bool = False) -> float:
+        """Run once, on dummy inputs against the current pool shapes, every
+        stage the steady state can dispatch, and discard the results: on
+        the card this pays the first-use costs before the first frame (the
+        kernel's ``nvcc`` build, the first forward-mode call, the first
+        cuSOLVER and cuBLAS calls), as the original system loads its
+        vocabulary before tracking starts. The System is left as it was
+        found: nothing here writes an attribute, a database row, a cache or
+        a random generator of it. Returns the seconds it took."""
+        cfg, fcfg, m = self.cfg, self.cfg.frontend, self.map
+        K, N = m.kf_obs_point.shape
+        dev = self.device
+        dims = dict(n_levels=fcfg.n_levels, scale=fcfg.scale_factor, height=fcfg.height,
+                    width=fcfg.width)
+        g = torch.Generator(device=dev).manual_seed(0)  # never self._generator
+        t0 = time.perf_counter()
+
+        def log(name):
+            if verbose:
+                print(f"[warmup] {name} ({time.perf_counter() - t0:.1f} s)", file=sys.stderr,
+                      flush=True)
+
+        if dev.type == "cuda":
+            from ..ops import cuda_kernels
+
+            cuda_kernels.build()
+            log("kernel build")
+        # the pipelined frame: a pinned upload, the step, a pinned read-back
+        zimg = self._upload(np.zeros((fcfg.height, fcfg.width), np.uint8))
+        zaux = zimg.to(torch.float32) if cfg.sensor == "rgbd" else zimg
+        out = _frame_step(
+            m, ms.observation_matrix(m), zimg, zaux, self.T_cw, self.velocity, self.prev_obs,
+            0, m.kf_pose[0], ms.obs_level_cum(m, fcfg.n_levels), fcfg, cfg.sensor,
+            cfg.min_inliers_track, *self._local_window(), cfg.depth_factor)
+        feats = out[0]
+        _HostCopy(out[6]).numpy()
+        log("frame_step")
+        if cfg.sensor == "mono":
+            fe.extract_mono(self._init_fe_cfg, zimg)  # initialization extracts 2x
+        _insert_and_map(m, feats, self.T_cw, 0, 0,
+                        torch.full((N,), -1, dtype=torch.int32, device=dev),
+                        torch.zeros((K,), dtype=torch.bool, device=dev), self._inv_sigma2,
+                        fcfg, cfg.sensor, cfg.local_ba_window)
+        log("insert_and_map")
+        bf = float(fcfg.bf)
+        for n_iters in ((10, 20) if cfg.sensor == "mono" else (10,)):
+            lm.run_global_ba(m, self._K, bf, self._inv_sigma2, n_iters=n_iters)
+        log("global_ba")
+        lcs = self.loop_closer
+        if lcs is not None:
+            # the database update and detection of keyframe 0, into copies
+            word, _ = vocab_mod.transform_any(lcs.voc, m.kf_desc[0], m.kf_kp_valid[0])
+            if lcs.sparse:
+                wid, wval = vocab_mod.sparse_bow(word, lcs.voc.idf)
+                kf_wid, kf_wval, words = lc._db_update_sparse(
+                    lcs.kf_wid, lcs.kf_wval, lcs.words, wid, wval, word, 0)
+                lc._detect_prep_sparse(m, kf_wid, kf_wval, words, lcs.voc.idf, 0)
+            else:
+                bv = vocab_mod.bow_vector(word, lcs.voc.n_words, lcs.voc.idf)
+                bow, words = lc._db_update_dense(lcs.bow, lcs.words, bv, word, 0)
+                lc._detect_prep_dense(m, bow, words, lcs.voc.idf, 0, lcs.voc.n_words)
+            log("detect_prep")
+            _, S_corr, loop_ids = lc._sim3_geometry(
+                m, words, 0, 1, self._K, fix_scale=cfg.sensor != "mono", generator=g, **dims)
+            log("sim3_geometry")
+            from ..ops import pose_graph
+
+            no_kf = torch.zeros((K,), dtype=torch.bool, device=dev)
+            for E in (64, 128, 256):
+                ei = torch.zeros((E,), dtype=torch.int64, device=dev)
+                S_old, S_init, meas = lc._graph_arrays(
+                    m, 0, 1, S_corr, no_kf, ei, ei, torch.zeros((E,), dtype=torch.bool,
+                                                                device=dev))
+                pose_graph.optimize_pose_graph(S_init, ei, ei, meas,
+                                               torch.zeros((E,), device=dev),
+                                               torch.zeros((K,), device=dev))
+            lc._apply_graph(m, S_old, S_init)
+            lc.gather_loop_points(m, 0)
+            lc.fuse_loop_points(m, 0, loop_ids, self._K, **dims)
+            log("graph+fuse")
+            # relocalization
+            vocab_mod.transform_any(lcs.voc, feats.desc, feats.valid)
+            matching.mutual_match(feats.desc, feats.valid, m.kf_desc[0], m.kf_kp_valid[0],
+                                  th=matching.TH_LOW, ratio=0.75)
+            lvl = torch.clamp(feats.level.to(torch.int64), 0, self._inv_sigma2.shape[0] - 1)
+            pnp.ransac_pnp(m.pt_pos[:N], feats.uv_und,
+                           torch.zeros((N,), dtype=torch.bool, device=dev), self._K,
+                           self._inv_sigma2[lvl], generator=g)
+            log("reloc")
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        log("done")
+        return time.perf_counter() - t0
 
     def shutdown(self):
         """Flush all in-flight work: the pending pipelined frame, the
@@ -1342,6 +1437,33 @@ class System:
                 hops += 1
             out.append((fid, ts, lie.se3_compose(T, kf_pose[r]).numpy()))
         return out
+
+    def keyframe_trajectory(self):
+        """(frame_id, T_cw [7]) of every live keyframe, in slot order
+        (SaveKeyFrameTrajectoryTUM)."""
+        self._flush()
+        kf_valid = self.map.kf_valid.cpu().numpy()
+        kf_pose = self.map.kf_pose.cpu().numpy()
+        kf_fid = self.map.kf_frame_id.cpu().numpy()
+        return [(int(kf_fid[s]), kf_pose[s]) for s in range(int(self.map.n_kf))
+                if kf_valid[s]]
+
+    # the savers write the original system's TUM / KITTI files
+
+    def save_trajectory_tum(self, path: str):
+        trajectory.save_tum(path, ((ts, metrics.se3_vec_to_mat(T7))
+                                   for _, ts, T7 in self.full_trajectory()))
+
+    def save_keyframe_trajectory_tum(self, path: str):
+        """A keyframe's timestamp is its frame's (the frame id where the
+        frame has no trajectory entry)."""
+        ts_by_fid = {fid: ts for fid, ts, _, _ in self.trajectory}
+        trajectory.save_tum(path, ((ts_by_fid.get(fid, float(fid)), metrics.se3_vec_to_mat(T7))
+                                   for fid, T7 in self.keyframe_trajectory()))
+
+    def save_trajectory_kitti(self, path: str):
+        trajectory.save_kitti(path, ((ts, metrics.se3_vec_to_mat(T7))
+                                     for _, ts, T7 in self.full_trajectory()))
 
 
 def _np_se3_compose(a7, b7):

@@ -8,7 +8,9 @@ S = Hcc - W Hpp^-1 W^T:
 
 - ``ba_solve``: S applied implicitly by two segment sums over the edges and
   solved by block-Jacobi preconditioned CG (global BA, the quadric joint
-  BA, and local BA on the CPU);
+  BA, local BA on the CPU, and distributed BA: with a ``group`` every
+  segment sum and the cost are summed over the ranks' edge shards, see
+  ``parallel/dist_ba.py``);
 - ``ba_solve_dense``: S built densely over a cam-major [C, N] edge table
   and Cholesky-solved (local BA on the card, where the window's <= ~50
   cameras make S at most ~300 x 300).
@@ -20,6 +22,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import lie, residuals
 from .pose_opt import robust_cost
@@ -40,8 +43,17 @@ class BAProblem(NamedTuple):
     fixed_pnt: torch.Tensor   # [P] float
 
 
-def _edge_terms(prob: BAProblem, huber_delta2: float):
-    """Residuals, weights and weighted Jacobians for every edge."""
+def _all_sum(t, group):
+    """``t`` summed over the ranks of ``group``, in place (the reference's
+    ``psum``); ``t`` itself when ``group`` is None."""
+    if group is not None:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    return t
+
+
+def _edge_terms(prob: BAProblem, huber_delta2: float, group=None):
+    """Residuals, weights and weighted Jacobians for every edge; the cost is
+    summed over ``group``'s ranks."""
     e, Jc, Jp, z = residuals.residual_and_jacobians(
         prob.poses[prob.cam_idx], prob.K, prob.bf, prob.points[prob.pnt_idx], prob.uvr
     )
@@ -53,7 +65,7 @@ def _edge_terms(prob: BAProblem, huber_delta2: float):
     chi2 = torch.sum(e * e * row_w, dim=-1) * prob.inv_sigma2
     hw = residuals.huber_weight(chi2, huber_delta2) if huber_delta2 > 0 else 1.0
     w = ok * prob.inv_sigma2 * hw
-    cost = torch.sum(robust_cost(chi2, huber_delta2) * ok)
+    cost = _all_sum(torch.sum(robust_cost(chi2, huber_delta2) * ok), group)
     # gauge: fixed cameras/points contribute no Jacobian
     Jc = Jc * (1.0 - prob.fixed_cam[prob.cam_idx])[:, None, None]
     Jp = Jp * (1.0 - prob.fixed_pnt[prob.pnt_idx])[:, None, None]
@@ -61,18 +73,18 @@ def _edge_terms(prob: BAProblem, huber_delta2: float):
     return e, Jc, Jp, Jc * wr[:, :, None], Jp * wr[:, :, None], cost, chi2, ok
 
 
-def _seg(vals, idx, num: int):
-    return torch.zeros((num,) + vals.shape[1:], dtype=vals.dtype,
-                       device=vals.device).index_add(0, idx, vals)
+def _seg(vals, idx, num: int, group=None):
+    return _all_sum(torch.zeros((num,) + vals.shape[1:], dtype=vals.dtype,
+                                device=vals.device).index_add(0, idx, vals), group)
 
 
-def _build_system(prob: BAProblem, huber_delta2: float, lam):
+def _build_system(prob: BAProblem, huber_delta2: float, lam, group=None):
     C, P = prob.poses.shape[0], prob.points.shape[0]
-    e, Jc, Jp, JcW, JpW, cost, _, _ = _edge_terms(prob, huber_delta2)
-    Hcc = _seg(torch.einsum("ori,orj->oij", JcW, Jc), prob.cam_idx, C)
-    bc = _seg(-torch.einsum("ori,or->oi", JcW, e), prob.cam_idx, C)
-    Hpp = _seg(torch.einsum("ori,orj->oij", JpW, Jp), prob.pnt_idx, P)
-    bp = _seg(-torch.einsum("ori,or->oi", JpW, e), prob.pnt_idx, P)
+    e, Jc, Jp, JcW, JpW, cost, _, _ = _edge_terms(prob, huber_delta2, group)
+    Hcc = _seg(torch.einsum("ori,orj->oij", JcW, Jc), prob.cam_idx, C, group)
+    bc = _seg(-torch.einsum("ori,or->oi", JcW, e), prob.cam_idx, C, group)
+    Hpp = _seg(torch.einsum("ori,orj->oij", JpW, Jp), prob.pnt_idx, P, group)
+    bp = _seg(-torch.einsum("ori,or->oi", JpW, e), prob.pnt_idx, P, group)
     Wcp = torch.einsum("ori,orj->oij", JcW, Jp)                 # [O,6,3]
 
     eye6 = torch.eye(6, dtype=Hcc.dtype, device=Hcc.device)
@@ -84,17 +96,19 @@ def _build_system(prob: BAProblem, huber_delta2: float, lam):
     return Hcc_d, bc, torch.linalg.inv_ex(Hpp_d)[0], bp, Wcp, cost
 
 
-def _schur_matvec(x, prob, Hcc_d, Hpp_inv, Wcp):
+def _schur_matvec(x, prob, Hcc_d, Hpp_inv, Wcp, group=None):
     """S x = Hcc_d x - W Hpp^-1 W^T x via two edge sweeps."""
     P, C = prob.points.shape[0], prob.poses.shape[0]
     t1 = torch.einsum("oij,oi->oj", Wcp, x[prob.cam_idx])
-    y = torch.einsum("pij,pj->pi", Hpp_inv, _seg(t1, prob.pnt_idx, P))
+    y = torch.einsum("pij,pj->pi", Hpp_inv, _seg(t1, prob.pnt_idx, P, group))
     t2 = torch.einsum("oij,oj->oi", Wcp, y[prob.pnt_idx])
-    return torch.einsum("cij,cj->ci", Hcc_d, x) - _seg(t2, prob.cam_idx, C)
+    return torch.einsum("cij,cj->ci", Hcc_d, x) - _seg(t2, prob.cam_idx, C, group)
 
 
 def _pcg(b, matvec, Minv, iters: int):
-    """Block-Jacobi preconditioned CG on the reduced camera system."""
+    """Block-Jacobi preconditioned CG on the reduced camera system. Its dot
+    products run over camera vectors, which every rank holds whole, so they
+    take no reduction."""
     x = torch.zeros_like(b)
     r = b
     z = torch.einsum("cij,cj->ci", Minv, r)
@@ -112,42 +126,51 @@ def _pcg(b, matvec, Minv, iters: int):
     return x
 
 
-def _schur_rhs(prob, Hpp_inv, bp, Wcp):
+def _schur_rhs(prob, Hpp_inv, bp, Wcp, group=None):
     """W Hpp^-1 bp accumulated per camera."""
     y = torch.einsum("pij,pj->pi", Hpp_inv, bp)
     t = torch.einsum("oij,oj->oi", Wcp, y[prob.pnt_idx])
-    return _seg(t, prob.cam_idx, prob.poses.shape[0])
+    return _seg(t, prob.cam_idx, prob.poses.shape[0], group)
 
 
-def ba_iteration(prob: BAProblem, lam, huber_delta2: float, cg_iters: int):
-    """One damped Gauss-Newton (LM) step. Returns (new_prob, cost, step_ok)."""
-    Hcc_d, bc, Hpp_inv, bp, Wcp, cost = _build_system(prob, huber_delta2, lam)
-    g = bc - _schur_rhs(prob, Hpp_inv, bp, Wcp)
-    dc = _pcg(g, lambda x: _schur_matvec(x, prob, Hcc_d, Hpp_inv, Wcp),
+def ba_iteration(prob: BAProblem, lam, huber_delta2: float, cg_iters: int, group=None):
+    """One damped Gauss-Newton (LM) step. Returns (new_prob, cost, step_ok).
+    With a ``group`` the step and its accept test are computed from reduced
+    values only, so every rank takes the same step."""
+    Hcc_d, bc, Hpp_inv, bp, Wcp, cost = _build_system(prob, huber_delta2, lam, group)
+    g = bc - _schur_rhs(prob, Hpp_inv, bp, Wcp, group)
+    dc = _pcg(g, lambda x: _schur_matvec(x, prob, Hcc_d, Hpp_inv, Wcp, group),
               torch.linalg.inv_ex(Hcc_d)[0], cg_iters)
     dc = dc * (1.0 - prob.fixed_cam)[:, None]
     # back-substitute points: dp = Hpp^-1 (bp - W^T dc)
     t1 = torch.einsum("oij,oi->oj", Wcp, dc[prob.cam_idx])
     dp = torch.einsum("pij,pj->pi", Hpp_inv,
-                      bp - _seg(t1, prob.pnt_idx, prob.points.shape[0]))
+                      bp - _seg(t1, prob.pnt_idx, prob.points.shape[0], group))
     dp = dp * (1.0 - prob.fixed_pnt)[:, None]
     cand = prob._replace(poses=lie.se3_retract(prob.poses, dc),
                          points=prob.points + dp)
-    new_cost = _edge_terms(cand, huber_delta2)[5]
+    new_cost = _edge_terms(cand, huber_delta2, group)[5]
     ok = (new_cost < cost) & torch.all(torch.isfinite(dc)) & torch.all(torch.isfinite(dp))
+    if group is not None:
+        # accepted only where every rank accepts
+        flag = ok.to(torch.int32)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=group)
+        ok = flag > 0
     out = prob._replace(poses=torch.where(ok, cand.poses, prob.poses),
                         points=torch.where(ok, cand.points, prob.points))
     return out, torch.where(ok, new_cost, cost), ok
 
 
 def ba_solve(prob: BAProblem, n_iters: int = 10, cg_iters: int = 40,
-             use_huber: bool = True):
-    """Run ``n_iters`` LM steps. Returns (prob, final_cost)."""
+             use_huber: bool = True, group=None):
+    """Run ``n_iters`` LM steps. Returns (prob, final_cost). ``group``: a
+    ``torch.distributed`` process group over which ``prob``'s edges are
+    sharded (poses and points whole on every rank), or None."""
     huber_delta2 = residuals.CHI2_STEREO if use_huber else 0.0
-    cost = _edge_terms(prob, huber_delta2)[5]
+    cost = _edge_terms(prob, huber_delta2, group)[5]
     lam = torch.full((), 1e-4, dtype=prob.poses.dtype, device=prob.poses.device)
     for _ in range(n_iters):
-        prob, cost, ok = ba_iteration(prob, lam, huber_delta2, cg_iters)
+        prob, cost, ok = ba_iteration(prob, lam, huber_delta2, cg_iters, group)
         lam = torch.clamp(torch.where(ok, lam * 0.5, lam * 4.0), 1e-8, 1e8)
     return prob, cost
 

@@ -22,6 +22,15 @@ def project(K, p_cam):
     return torch.stack([u, v], dim=-1), z
 
 
+def project_stereo(K, baseline_fx, p_cam):
+    """Stereo projection -> ((u_l, v_l, u_r) [...,3], z). ``baseline_fx`` is
+    fx * baseline (the ``bf`` of a stereo camera)."""
+    uv, z = project(K, p_cam)
+    zs = torch.where(torch.abs(z) < 1e-8, 1e-8, z)
+    ur = uv[..., 0] - baseline_fx / zs
+    return torch.cat([uv, ur[..., None]], dim=-1), z
+
+
 def backproject(K, uv, z):
     """Pixel + depth -> camera-frame 3D point."""
     fx, fy, cx, cy = K[..., 0], K[..., 1], K[..., 2], K[..., 3]

@@ -162,7 +162,10 @@ def optimize_sim3(S12, p1, p2, valid, K1, K2, uv1, uv2, inv_sigma2_1, inv_sigma2
             g = g.clone()
             g[6] = 0.0
         Hd = H + lam * torch.diag(torch.diag(H)) + 1e-8 * eye
-        dx = torch.linalg.solve(Hd, g)
+        # a singular or non-finite system gives NaN, as XLA's solve does
+        # (``linalg.solve`` raises on the card), and the step is rejected
+        dx, info = torch.linalg.solve_ex(Hd, g)
+        dx = torch.where(info == 0, dx, torch.full_like(dx, float("nan")))
         S_new = lie.sim3_retract(S, dx)
         new_cost, _ = cost_of(S_new)
         ok = (new_cost < cost) & torch.all(torch.isfinite(dx))

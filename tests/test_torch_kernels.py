@@ -459,3 +459,48 @@ def test_default_device_loop_closing_system_on_card(cuda_device):
             break
     slam.shutdown()
     assert slam.state == sysm.System.OK and ck.LAUNCHES["masked_hamming_best2"] >= 3
+
+
+@pytest.mark.cuda
+def test_warmup_and_checkpoint_on_card(cuda_device, tmp_path):
+    """``warmup()`` on a default-device mono System before its first frame
+    (the map empty: the Sim3 LM meets a non-finite system, which gives a
+    rejected step and never an exception) and again once it tracks, leaving
+    the map, the pose and the database as they were; then ``save_system`` /
+    ``load_system`` restore the map on the card bit for bit and tracking
+    goes on."""
+    from orbslam2_with_quadrics_tpu_torch.models import frontend as fe
+    from orbslam2_with_quadrics_tpu_torch.models import map_state as ms
+    from orbslam2_with_quadrics_tpu_torch.models import system as sysm
+    from orbslam2_with_quadrics_tpu_torch.utils import serialization as ser
+    from orbslam2_with_quadrics_tpu_torch.utils import synthetic
+
+    h, w, fx, n = 240, 320, 260.0, 16
+    imgs, _, _ = synthetic.planar_sequence(n_frames=n, h=h, w=w, fx=fx, fy=fx, seed=3)
+    cfg = sysm.SystemConfig(
+        frontend=fe.FrontendConfig(height=h, width=w, n_features=512, n_levels=4, fx=fx,
+                                   fy=fx, cx=w / 2, cy=h / 2),
+        map=ms.MapConfig(max_keyframes=32, max_points=4096, n_features=512, n_levels=4),
+        max_frames_between_kf=8)
+    slam = sysm.System(cfg)
+    assert slam.warmup() > 0 and int(slam.map.n_kf) == 0 and slam.trajectory == []
+    for i in range(10):
+        slam.track_monocular(imgs[i], timestamp=i / 30.0)
+    assert slam.state == sysm.System.OK
+    before = ms.map_state_to_numpy(slam.map)
+    T, words = slam.T_cw.clone(), slam.loop_closer.words.clone()
+    slam.warmup()
+    after = ms.map_state_to_numpy(slam.map)
+    assert all(np.array_equal(before[f], after[f]) for f in ms.MapState._fields)
+    assert torch.equal(slam.T_cw, T) and torch.equal(slam.loop_closer.words, words)
+    path = str(tmp_path / "system.pkl")
+    ser.save_system(path, slam)
+    slam2 = sysm.System(cfg)
+    ser.load_system(path, slam2)
+    saved, got = ms.map_state_to_numpy(slam.map), ms.map_state_to_numpy(slam2.map)
+    assert all(np.array_equal(saved[f], got[f]) for f in ms.MapState._fields)
+    assert slam2.map.kf_desc.is_cuda and slam2.loop_closer.kf_wid.is_cuda
+    for i in range(10, n):
+        slam2.track_monocular(imgs[i], timestamp=i / 30.0)
+    slam2.shutdown()
+    assert slam2.state == sysm.System.OK and len(slam2.full_trajectory()) == n
