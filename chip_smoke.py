@@ -62,14 +62,23 @@ Phases (any failure exits non-zero before the result line):
                  initializes, and its boxes re-projected into its keyframes
                  meet the measured ones at a median IoU above 0.5 over at
                  least 3 keyframes; joint BA and ``quadric_init`` timed.
-  6. distributed BA: a 1-rank NCCL ``dist_ba_solve`` against ``ba_solve`` on
+  6. the example drivers: TUM (mono, RGB-D with 16-bit depth), KITTI stereo
+     and EuRoC (over the KITTI pairs) datasets written to disk by the port's
+     writers; each driver's ``main()`` at its own map pools, every map tensor
+     on the card: mono_tum, rgbd_tum and stereo_kitti under 5% ATE of the
+     span on their whole sequences, mono_kitti, mono_euroc and stereo_euroc
+     on 40 frames, each trajectory file read back, the kernel's launches
+     counted per driver under the rule above; then mono_tum through
+     ``python -X importtime -m`` on 30 frames, no JAX module imported;
+  7. distributed BA: a 1-rank NCCL ``dist_ba_solve`` against ``ba_solve`` on
      a KITTI-00-scale problem built on the card (1,400 keyframes, 140,000
      points, 5,000,000 stereo edges), timed, with its peak memory; the
      dryrun problem over 2 spawned gloo ranks on CUDA tensors against one
      process; ``dist_score_database`` over those ranks on a [1023 x 16384]
      database. Multi-GPU NCCL scaling is not measured (one card).
 Local BA runs the dense-Schur solver on every path (the map is on the card).
-The orbit's frames render in a worker process during the first phases.
+The orbit's frames render, and the drivers' datasets are written, in a
+worker process during the first phases.
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -77,12 +86,14 @@ The line before the last is a JSON summary of the kernels; the last line is
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import importlib.util
 import json
 import multiprocessing
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 sys.modules["jax"] = None  # the port must never need JAX
@@ -662,51 +673,28 @@ def landmark_ious(slam):
     return out
 
 
-def run_main_path(name="mono", device="cuda", sync=False, log_every=5, rendered=None,
-                  **overrides):
-    """Drive one of ``PATHS`` through ``System.track_*`` (``overrides``
-    replace its arguments; ``sync`` takes the synchronous path; ``rendered``
-    is the sequence where ``render_sequence`` ran beforehand). The
-    kernels' launch counts are set to 0 just before the first frame and read
-    just after the last. Returns a dict of the run's numbers; raises on any
-    failed check."""
+@contextlib.contextmanager
+def counted_calls(cuda: bool):
+    """While the block runs, count the calls that the per-frame launch rule
+    allows for: a tracked frame is one ``track_frame`` call
+    (relocalization's included), a mapping pass one ``_insert_and_map``
+    (pipelined) or ``_insert_keyframe`` (synchronous) call, and each of the
+    three loop-closing searches is counted by its own function. On the card
+    each mapping pass is timed by two CUDA events. Yields (the counts, the
+    mapping passes' event pairs)."""
     from orbslam2_with_quadrics_tpu_torch.models import loop_closing as lc
     from orbslam2_with_quadrics_tpu_torch.models import system as sysm
     from orbslam2_with_quadrics_tpu_torch.models import tracking as tr
-    from orbslam2_with_quadrics_tpu_torch.ops import cuda_kernels as ck
     from orbslam2_with_quadrics_tpu_torch.ops import matching
 
-    from orbslam2_with_quadrics_tpu_torch.models import quadric_mapping as qm
-    from orbslam2_with_quadrics_tpu_torch.ops import quadrics
-
-    spec = {**PATHS[name], **overrides}
-    bar = {k: spec.pop(k, None) for k in ("min_tracked", "min_kf", "ate_max", "metric",
-                                          "scale_free", "capacity", "loop", "quadric")}
-    warm, resume_at = spec.pop("warmup", False), spec.pop("resume_at", None)
-    kidnap = spec.get("kidnap")
-    tag = name + ("-sync" if sync else "")
-    spec.setdefault("n_frames", 60)
-    cfg, frames, poses = main_path_setup(device, rendered=rendered, **spec)
-    cuda = device == "cuda"
-    dets = (object_detections(poses, cfg.frontend.fx, cfg.frontend.width, cfg.frontend.height)
-            if bar["quadric"] else [None] * len(frames))
-    quad_ms = {"joint_ba": [], "quadric_init": []}  # host ms, device drained
-    map_events = []
     n_calls = {"frames": 0, "map_passes": 0, "mutual_match": 0, "loop_proj": 0,
                "loop_fuse": 0}
-    relocs = []  # per _relocalize call: ms, kernel launches, recovered
-    # a tracked frame is one track_frame call (relocalization's included), a
-    # mapping pass one _insert_and_map (pipelined) or _insert_keyframe
-    # (synchronous) call; each of the three loop-closing searches is counted
-    # by its own function
+    map_events = []
     patched = [(tr, "track_frame", "frames"), (matching, "mutual_match", "mutual_match"),
                (lc, "project_loop_points", "loop_proj"), (lc, "fuse_loop_points", "loop_fuse")]
     originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patched]
     originals += [(sysm, "_insert_and_map", sysm._insert_and_map),
-                  (sysm.System, "_insert_keyframe", sysm.System._insert_keyframe),
-                  (sysm.System, "_relocalize", sysm.System._relocalize),
-                  (qm.QuadricManager, "joint_ba", qm.QuadricManager.joint_ba),
-                  (quadrics, "quadric_init", quadrics.quadric_init)]
+                  (sysm.System, "_insert_keyframe", sysm.System._insert_keyframe)]
 
     def counted(fn, key):
         def call(*a, **k):
@@ -727,6 +715,60 @@ def run_main_path(name="mono", device="cuda", sync=False, log_every=5, rendered=
             return out
         return call
 
+    for mod, attr, key in patched:
+        setattr(mod, attr, counted(getattr(mod, attr), key))
+    sysm._insert_and_map = timed(sysm._insert_and_map)
+    sysm.System._insert_keyframe = timed(sysm.System._insert_keyframe)
+    try:
+        yield n_calls, map_events
+    finally:
+        for mod, attr, fn in originals:
+            setattr(mod, attr, fn)
+
+
+def launch_checks(n: int, n_calls: dict):
+    """The per-frame launch rule for ``n`` launches of masked_hamming_best2
+    over the calls ``counted_calls`` counted: (ok, what) pairs."""
+    most = (2 * n_calls["frames"] + 2 * n_calls["map_passes"] + n_calls["mutual_match"]
+            + n_calls["loop_proj"] + n_calls["loop_fuse"])
+    return [(n > 0, "masked_hamming_best2 launched by the path"),
+            (n <= most, f"at most 2 launches per tracked frame, 2 per mapping pass "
+                        f"and 1 per mutual match, loop projection and loop fuse "
+                        f"({n} launches, limit {most})")]
+
+
+def run_main_path(name="mono", device="cuda", sync=False, log_every=5, rendered=None,
+                  **overrides):
+    """Drive one of ``PATHS`` through ``System.track_*`` (``overrides``
+    replace its arguments; ``sync`` takes the synchronous path; ``rendered``
+    is the sequence where ``render_sequence`` ran beforehand). The
+    kernels' launch counts are set to 0 just before the first frame and read
+    just after the last. Returns a dict of the run's numbers; raises on any
+    failed check."""
+    from orbslam2_with_quadrics_tpu_torch.models import loop_closing as lc
+    from orbslam2_with_quadrics_tpu_torch.models import quadric_mapping as qm
+    from orbslam2_with_quadrics_tpu_torch.models import system as sysm
+    from orbslam2_with_quadrics_tpu_torch.ops import cuda_kernels as ck
+    from orbslam2_with_quadrics_tpu_torch.ops import quadrics
+
+    spec = {**PATHS[name], **overrides}
+    bar = {k: spec.pop(k, None) for k in ("min_tracked", "min_kf", "ate_max", "metric",
+                                          "scale_free", "capacity", "loop", "quadric")}
+    warm, resume_at = spec.pop("warmup", False), spec.pop("resume_at", None)
+    kidnap = spec.get("kidnap")
+    tag = name + ("-sync" if sync else "")
+    spec.setdefault("n_frames", 60)
+    cfg, frames, poses = main_path_setup(device, rendered=rendered, **spec)
+    cuda = device == "cuda"
+    dets = (object_detections(poses, cfg.frontend.fx, cfg.frontend.width, cfg.frontend.height)
+            if bar["quadric"] else [None] * len(frames))
+    quad_ms = {"joint_ba": [], "quadric_init": []}  # host ms, device drained
+    relocs = []  # per _relocalize call: ms, kernel launches, recovered
+    calls = contextlib.ExitStack()
+    n_calls, map_events = calls.enter_context(counted_calls(cuda))
+    originals = [(sysm.System, "_relocalize", sysm.System._relocalize),
+                 (qm.QuadricManager, "joint_ba", qm.QuadricManager.joint_ba),
+                 (quadrics, "quadric_init", quadrics.quadric_init)]
     relocalize = sysm.System._relocalize
 
     def timed_relocalize(self, feats):
@@ -752,12 +794,8 @@ def run_main_path(name="mono", device="cuda", sync=False, log_every=5, rendered=
             return out
         return call
 
-    for mod, attr, key in patched:
-        setattr(mod, attr, counted(getattr(mod, attr), key))
     qm.QuadricManager.joint_ba = host_timed(qm.QuadricManager.joint_ba, "joint_ba")
     quadrics.quadric_init = host_timed(quadrics.quadric_init, "quadric_init")
-    sysm._insert_and_map = timed(sysm._insert_and_map)
-    sysm.System._insert_keyframe = timed(sysm.System._insert_keyframe)
     sysm.System._relocalize = timed_relocalize
     traced = bool(kidnap or bar["loop"])  # tracing drains the device per stage
     lc.TRACE = [] if traced else None
@@ -817,6 +855,7 @@ def run_main_path(name="mono", device="cuda", sync=False, log_every=5, rendered=
         lc.TRACE = None
         for mod, attr, fn in originals:
             setattr(mod, attr, fn)
+        calls.close()
         if old_sync is None:
             os.environ.pop("ORB_SYNC_TRACK", None)
         else:
@@ -934,13 +973,7 @@ def run_main_path(name="mono", device="cuda", sync=False, log_every=5, rendered=
             (slam.loop_closer.sparse, "the sparse database path"),
         ]
     if cuda:
-        n = launches["masked_hamming_best2"]
-        most = (2 * n_calls["frames"] + 2 * n_calls["map_passes"] + n_calls["mutual_match"]
-                + n_calls["loop_proj"] + n_calls["loop_fuse"])
-        checks.append((n > 0, "masked_hamming_best2 launched by the path"))
-        checks.append((n <= most, f"at most 2 launches per tracked frame, 2 per mapping pass "
-                                  f"and 1 per mutual match, loop projection and loop fuse "
-                                  f"({n} launches, limit {most})"))
+        checks += launch_checks(launches["masked_hamming_best2"], n_calls)
         if bar["loop"]:
             closures = n_calls["loop_fuse"]
             checks.append((n_calls["mutual_match"] >= closures >= 1
@@ -957,7 +990,6 @@ def resume_from_checkpoint(slam, tag):
     ``load_system`` into it; the restored map's tensors must equal the saved
     arrays bit for bit. Returns (the fresh System, the checkpoint's numbers)."""
     import pickle
-    import tempfile
 
     from orbslam2_with_quadrics_tpu_torch.models import map_state as ms
     from orbslam2_with_quadrics_tpu_torch.models import system as sysm
@@ -1002,8 +1034,6 @@ def check_trajectory_files(slam, traj):
     the TUM file's timestamps and poses within 1e-6 of ``traj`` (the output
     of ``full_trajectory()``), as many KITTI lines, one keyframe line per
     live keyframe."""
-    import tempfile
-
     from orbslam2_with_quadrics_tpu_torch.utils import metrics, trajectory
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1025,6 +1055,220 @@ def check_trajectory_files(slam, traj):
             and len(kf) == n_kf):
         raise AssertionError(f"trajectory files disagree with full_trajectory(): {rec}")
     return rec
+
+
+# the drivers phase's sequences, written to disk by the port's writers at the
+# widths of the paths above: TUM (mono, RGB-D with 16-bit depth at 5000
+# counts per metre) and KITTI stereo; a EuRoC layout is made from the KITTI
+# frames. mono_tum, rgbd_tum and stereo_kitti run the whole sequences, the
+# other three drivers DRIVER_SHORT frames; the command-line run CLI_FRAMES.
+DRIVER_SEQUENCES = {
+    "tum": dict(n_frames=80, h=480, w=640, fx=520.0, seed=1, sensor="mono", n_features=1024),
+    "rgbd": dict(n_frames=80, h=480, w=640, fx=520.0, seed=2, sensor="rgbd", n_features=1024),
+    "kitti": dict(n_frames=60, h=370, w=1226, fx=718.9, baseline=0.2, seed=5, n_features=2048),
+}
+DRIVER_SHORT = 40
+CLI_FRAMES = 30
+
+
+def _opencv_matrix_yaml(key, rows, cols, data):
+    return (f"{key}: !!opencv-matrix\n   rows: {rows}\n   cols: {cols}\n   dt: d\n"
+            f"   data: [{', '.join(repr(float(x)) for x in data)}]\n")
+
+
+def _link_tree(src, dst, n_lines, listing, header=0):
+    """``dst`` holding symbolic links to ``src``'s entries, with the file
+    ``listing`` cut to its first ``header + n_lines`` lines."""
+    os.makedirs(dst)
+    for entry in os.listdir(src):
+        if entry != listing:
+            os.symlink(os.path.join(src, entry), os.path.join(dst, entry))
+    with open(os.path.join(src, listing)) as f:
+        lines = f.readlines()[:header + n_lines]
+    with open(os.path.join(dst, listing), "w") as f:
+        f.writelines(lines)
+
+
+def write_driver_sequences(root):
+    """The drivers phase's datasets under ``root`` (numpy and the standard
+    library only: ``main`` runs this in a worker process while the card
+    works). Returns ({name: (settings, sequence dir)}, seconds)."""
+    from orbslam2_with_quadrics_tpu_torch.utils import synthetic
+
+    t0 = time.time()
+    out = {}
+    for name in ("tum", "rgbd"):
+        d = os.path.join(root, name)
+        out[name] = (synthetic.write_tum_sequence(d, **DRIVER_SEQUENCES[name])[0], d)
+    kitti = os.path.join(root, "kitti")
+    k = DRIVER_SEQUENCES["kitti"]
+    out["kitti"] = (synthetic.write_kitti_sequence(kitti, **k)[0], kitti)
+    # the short copies: KITTI's first frames, TUM mono's for the command line
+    _link_tree(kitti, os.path.join(root, "kitti_short"), DRIVER_SHORT, "times.txt")
+    out["kitti_short"] = (out["kitti"][0], os.path.join(root, "kitti_short"))
+    _link_tree(out["tum"][1], os.path.join(root, "tum_cli"), CLI_FRAMES, "rgb.txt", header=2)
+    out["tum_cli"] = (out["tum"][0], os.path.join(root, "tum_cli"))
+    # EuRoC: mav0/cam{0,1}/data.csv over the KITTI pairs, a LEFT/RIGHT block
+    # with no distortion and R = I (the rectification maps are the identity)
+    euroc = os.path.join(root, "euroc")
+    times = np.loadtxt(os.path.join(kitti, "times.txt"))[:DRIVER_SHORT]
+    for cam, sub in (("cam0", "image_0"), ("cam1", "image_1")):
+        data = os.path.join(euroc, "mav0", cam, "data")
+        os.makedirs(data)
+        rows = ["#timestamp [ns],filename"]
+        for i, t in enumerate(times):
+            ns = 1_400_000_000_000_000_000 + int(round(t * 1e9))  # EuRoC-like stamps
+            os.symlink(os.path.join(kitti, sub, f"{i:06d}.png"), os.path.join(data, f"{ns}.png"))
+            rows.append(f"{ns},{ns}.png")
+        with open(os.path.join(euroc, "mav0", cam, "data.csv"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    fx, w, h = k["fx"], k["w"], k["h"]
+    Kc = [fx, 0, w / 2.0, 0, fx, h / 2.0, 0, 0, 1]
+    with open(out["kitti"][0]) as f:
+        text = f.read()
+    for side, tx in (("LEFT", 0.0), ("RIGHT", -k["baseline"] * fx)):
+        text += f"{side}.height: {h}\n{side}.width: {w}\n"
+        text += _opencv_matrix_yaml(f"{side}.D", 1, 5, [0.0] * 5)
+        text += _opencv_matrix_yaml(f"{side}.K", 3, 3, Kc)
+        text += _opencv_matrix_yaml(f"{side}.R", 3, 3, np.eye(3).reshape(-1))
+        text += _opencv_matrix_yaml(f"{side}.P", 3, 4, Kc[:3] + [tx] + Kc[3:6] + [0.0]
+                                    + Kc[6:] + [0.0])
+    settings = os.path.join(euroc, "settings.yaml")
+    with open(settings, "w") as f:
+        f.write(text)
+    out["euroc"] = (settings, euroc)
+    return out, time.time() - t0
+
+
+def _rows(path):
+    with open(path) as f:
+        return np.asarray([[float(x) for x in line.split()] for line in f
+                           if line.strip() and not line.startswith("#")], np.float64)
+
+
+def driver_error(traj_path, seq_dir, fmt, with_scale):
+    """(ATE, span, rows) of a driver's trajectory file against the written
+    ground truth: TUM rows matched to ``groundtruth.txt`` by timestamp (as
+    ``tests/test_drivers.py`` scores them), or KITTI 3x4 rows against
+    ``poses.txt`` frame by frame; sim(3) or rigid alignment."""
+    from orbslam2_with_quadrics_tpu_torch.utils import metrics
+
+    est = _rows(traj_path)
+    if fmt == "kitti":
+        gt = _rows(os.path.join(seq_dir, "poses.txt"))
+        if est.shape[1] != 12 or len(est) != len(gt):
+            raise AssertionError(f"{traj_path}: {est.shape} KITTI rows for {len(gt)} frames")
+        e, g = est[:, [3, 7, 11]], gt[:, [3, 7, 11]]
+    else:
+        gt = {round(r[0], 4): r[1:4] for r in _rows(os.path.join(seq_dir, "groundtruth.txt"))}
+        pairs = [(r[1:4], gt[round(r[0], 4)]) for r in est if round(r[0], 4) in gt]
+        if est.shape[1] != 8 or not pairs:
+            raise AssertionError(f"{traj_path}: {est.shape} is no TUM trajectory")
+        e, g = np.asarray([p[0] for p in pairs]), np.asarray([p[1] for p in pairs])
+    return (metrics.ate_rmse(e, g, with_scale=with_scale),
+            float(np.linalg.norm(g.max(0) - g.min(0))), len(est))
+
+
+def phase_drivers(smi, written, out_dir, device="cuda"):
+    """Each example driver's ``main()`` on the written datasets, every map
+    tensor on the card, at the drivers' own map pools; the kernel's launch
+    counts set to 0 before each and read after. mono_tum, rgbd_tum and
+    stereo_kitti must score under 5% of the span (sim(3) for mono, rigid
+    for the metric sensors); every driver must exit and leave a trajectory
+    file that reads back. Then mono_tum once more through ``python -m`` on
+    CLI_FRAMES frames, with ``-X importtime`` showing that neither JAX nor
+    the JAX package was imported. Returns one dict per driver."""
+    from orbslam2_with_quadrics_tpu_torch.examples import (mono_euroc, mono_kitti, mono_tum,
+                                                           rgbd_tum, stereo_euroc, stereo_kitti)
+    from orbslam2_with_quadrics_tpu_torch.ops import cuda_kernels as ck
+
+    seqs, seconds = written
+    cuda = device == "cuda"
+    log(f"[drivers] wrote the datasets in {seconds:.1f} s (in a worker process)")
+    drivers = [  # name, module, main's arguments, file format, scored (with scale)
+        ("mono_tum", mono_tum, ["tum"], "tum", True),
+        ("rgbd_tum", rgbd_tum, ["rgbd", "associations.txt"], "tum", False),
+        ("stereo_kitti", stereo_kitti, ["kitti"], "kitti", False),
+        ("mono_kitti", mono_kitti, ["kitti_short"], "tum", None),
+        ("mono_euroc", mono_euroc, ["euroc"], "tum", None),
+        ("stereo_euroc", stereo_euroc, ["euroc"], "tum", None),
+    ]
+    runs = []
+    for name, mod, args, fmt, with_scale in drivers:
+        settings, seq = seqs[args[0]]
+        extra = [os.path.join(seq, a) for a in args[1:]]
+        traj = os.path.join(out_dir, f"{name}.txt")
+        if cuda:
+            torch.cuda.synchronize()
+        with counted_calls(cuda) as (n_calls, map_events):
+            ck.reset_launch_counts()
+            res = mod.main(settings, seq, *extra, traj, device=device)
+            if cuda:
+                torch.cuda.synchronize()
+            n = ck.LAUNCHES["masked_hamming_best2"]
+        slam = res.pop("system")
+        map_ms = [a.elapsed_time(b) for a, b in map_events]
+        frame_ms = 1e3 * np.asarray(res["times"])
+        if with_scale is None:  # not scored: the file must read back
+            ate, span, rows = float("nan"), float("nan"), len(_rows(traj))
+        else:
+            ate, span, rows = driver_error(traj, seq, fmt, with_scale)
+        rec = {
+            "path": f"driver:{name}", "decoder": res["decoder"], "frames": len(frame_ms),
+            "frame_ms_median": float(np.median(frame_ms)),
+            "frame_ms_p90": float(np.percentile(frame_ms, 90)),
+            "map_ms_median": _median(map_ms), "n_map_passes": n_calls["map_passes"],
+            "n_frame_steps": n_calls["frames"], "n_calls": dict(n_calls),
+            "launches": {"masked_hamming_best2": n}, "n_kf": res["n_kf"],
+            "kfs_created": res["kfs_created"], "n_loops_closed": res["n_loops_closed"],
+            "pools": [slam.map.kf_valid.shape[0], slam.map.pt_pos.shape[0]],
+            "trajectory_rows": rows, "ate": ate, "span": span, "ate_frac": ate / span,
+            "scored": with_scale is not None,
+        }
+        del slam, res
+        if cuda:
+            torch.cuda.empty_cache()
+        log(f"[drivers] {name}: decoder {rec['decoder']}, {rec['frames']} frames, frame (host, "
+            f"per track call) median {rec['frame_ms_median']:.2f} ms p90 "
+            f"{rec['frame_ms_p90']:.2f} ms, mapping pass median {rec['map_ms_median']:.2f} ms "
+            f"over {rec['n_map_passes']}, {rec['n_kf']} keyframes, {rec['n_loops_closed']} "
+            f"loops, pools {rec['pools']}, {n} kernel launches, ATE {ate / span:.4f} of the "
+            f"span, {rows} trajectory rows ({smi})")
+        log(f"[drivers] {name} {json.dumps(rec)}")
+        checks = [(rows > 0, "a trajectory file that reads back")]
+        if cuda:
+            checks += launch_checks(n, n_calls)
+        if with_scale is not None:
+            checks.append((ate < 0.05 * span, f"ATE {ate:.5f} < 5% of the span {span:.5f}"))
+        for ok, what in checks:
+            if not ok:
+                raise AssertionError(f"driver {name} check failed: {what}")
+        runs.append(rec)
+
+    # the command line, in a process of its own
+    settings, seq = seqs["tum_cli"]
+    traj = os.path.join(out_dir, "mono_tum_cli.txt")
+    t0 = time.time()
+    r = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m",
+         "orbslam2_with_quadrics_tpu_torch.examples.mono_tum", settings, seq, traj,
+         "--device", device],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=600)
+    imported = [line.rsplit("|", 1)[-1].strip() for line in r.stderr.splitlines()
+                if line.startswith("import time:")]
+    banned = sorted({m for m in imported
+                     if m.split(".")[0] in ("jax", "jaxlib", "orbslam2_with_quadrics_tpu")})
+    tail = [line for line in r.stdout.splitlines() if line.startswith(("image decoder", "median"))]
+    log(f"[drivers] python -m ...examples.mono_tum: exit {r.returncode} in "
+        f"{time.time() - t0:.1f} s, {len(imported)} modules imported, JAX or the JAX "
+        f"package among them: {banned or 'none'}; {tail}")
+    if r.returncode != 0 or banned or len(imported) < 10:
+        raise AssertionError(f"the command-line run failed: {r.stdout[-2000:]}\n"
+                             f"{[x for x in r.stderr.splitlines() if not x.startswith('import time')][-30:]}")
+    if len(_rows(traj)) < CLI_FRAMES // 2:
+        raise AssertionError("the command-line run's trajectory does not read back")
+    return runs
 
 
 def free_port() -> int:
@@ -1259,6 +1503,22 @@ def phase_quadric_ba(run, smi):
     return ms_
 
 
+def native_toolchain() -> str:
+    """Whether the host has what ``utils/image_io`` builds the native image
+    loader with: ``g++`` and the libpng / libjpeg headers."""
+    import shutil
+
+    cxx = shutil.which("g++")
+    if cxx is None:
+        return "g++ absent"
+    found = [cxx]
+    for header in ("png.h", "jpeglib.h"):
+        r = subprocess.run([cxx, "-E", "-x", "c++", "-"], input=f"#include <{header}>\n",
+                           capture_output=True, text=True)
+        found.append(f"{header} {'present' if r.returncode == 0 else 'absent'}")
+    return ", ".join(found)
+
+
 def main() -> int:
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda}")
     if not torch.cuda.is_available():
@@ -1275,14 +1535,17 @@ def main() -> int:
     log("[env] modules the port's drivers may use: " + ", ".join(
         f"{m} {'present' if importlib.util.find_spec(m) else 'absent'}"
         for m in ("yaml", "cv2", "PIL", "imageio")))
+    log(f"[env] the native image loader's toolchain: {native_toolchain()}")
 
     # the orbit's 500 frames take a minute to render: a worker process does
     # it while the kernel and solver phases and the two capacity runs (whose
     # frame times are not quoted) keep this one busy; one worker, so that
     # the host-bound paths after them find the host's cores free
     spawn = multiprocessing.get_context("spawn")
-    with concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as pool:
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as pool, \
+            tempfile.TemporaryDirectory() as tmp:
         orbit = pool.submit(render_sequence, **render_args("loop"))
+        datasets = pool.submit(write_driver_sequences, os.path.join(tmp, "datasets"))
         max_err, times = phase_kernels(smi)
         # first on the card after the kernels: warmup() pays the first-use costs
         runs = [run_main_path("resume")]
@@ -1294,6 +1557,7 @@ def main() -> int:
         phase_quadric_ba(runs[-1], smi)
         runs += [run_main_path("reloc"),
                  run_main_path("loop", log_every=50, rendered=orbit.result())]
+        runs += phase_drivers(smi, datasets.result(), tmp)
     dist_out = phase_dist(smi)
     log(f"[dist] {json.dumps(dist_out)}")
     by_path = {}

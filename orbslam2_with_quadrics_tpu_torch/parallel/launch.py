@@ -41,7 +41,7 @@ def _rank_main(fn, rank, world, init_method, backend, device, args, results):
             dist.destroy_process_group()
 
 
-def run_ranks(fn, world: int, *args, backend: str | None = None, device="cpu",
+def run_ranks(fn, world: int, *args, backend: str | None = None, device="cuda",
               timeout: float = 900.0):
     """``[fn(group, *args) of rank r for r in range(world)]``, each rank in
     its own spawned process. ``backend`` defaults to the one ``device``

@@ -5,13 +5,18 @@ reference renders with OpenCV; the machine that runs the port on the GPU has
 no OpenCV, so the three OpenCV calls it uses are rewritten here in numpy,
 following OpenCV's own arithmetic:
 
-- ``cv2.resize(..., INTER_NEAREST)`` at integer factors -> ``np.repeat``;
+- ``cv2.resize(..., INTER_NEAREST)`` -> an index gather, the source index
+  ``floor(x * src / dst)`` as OpenCV computes it;
 - ``cv2.circle(..., thickness=-1)`` -> :func:`_fill_circle`, OpenCV's
   midpoint span fill for integer centres;
 - ``cv2.warpPerspective(..., INTER_LINEAR)`` -> :func:`_warp_perspective`.
 
 The textures are bit-identical to OpenCV's; rendered frames agree with
 OpenCV 5's to about 1e-3 grey levels (the test states the bound).
+
+``write_tum_sequence`` and ``write_kitti_sequence`` write a sequence to disk
+in the TUM and KITTI layouts the example drivers read, with the PNGs written
+by ``image_io.write_png`` (zlib and struct) in place of ``cv2.imwrite``.
 """
 
 from __future__ import annotations
@@ -76,8 +81,10 @@ def _texture(size: int, seed: int) -> np.ndarray:
     sc = 8
     while sc <= max(64, size // 32):
         layer = rng.rand(sc, sc).astype(np.float32)
-        f = size // sc
-        img += np.repeat(np.repeat(layer, f, axis=0), f, axis=1)
+        # cv2.resize(INTER_NEAREST): source index floor(x * sc / size)
+        idx = np.minimum(np.floor(np.arange(size) * (1.0 / (size / sc))).astype(np.int64),
+                         sc - 1)
+        img += layer[idx[:, None], idx[None, :]]
         sc *= 2
     img = (img - img.min()) / (img.max() - img.min())
     for _ in range(max(size, size * size // 2048)):
@@ -294,3 +301,167 @@ def planar_depth(pose_T_cw, K, h, w, relief=False, relief_half=1.2,
         )
         depth = np.where(on_platform, lam_r, depth)
     return depth.astype(np.float32)
+
+
+def write_tum_sequence(
+    out_dir: str,
+    n_frames: int = 120,
+    h: int = 240,
+    w: int = 320,
+    fx: float = 260.0,
+    seed: int = 0,
+    motion: str = "strafe",
+    plane_half: float = 3.0,
+    sensor: str = "mono",
+    n_features: int = 600,
+    depth_factor: float = 5000.0,
+    fps: float = 30.0,
+):
+    """Write a synthetic sequence to disk in the TUM RGB-D dataset layout
+    the reference drivers consume (Examples/Monocular/mono_tum.cc:36-132,
+    Examples/RGB-D/rgbd_tum.cc): ``rgb/*.png`` + ``rgb.txt``,
+    ``groundtruth.txt`` (T_wc, 'ts tx ty tz qx qy qz qw'), a reference-
+    format settings YAML, and for ``sensor='rgbd'`` also ``depth/*.png``
+    (16-bit, ``depth_factor`` counts per meter, TUM's 5000) +
+    ``depth.txt`` + ``associations.txt``.
+
+    The same files as the reference package's writer: text files byte for
+    byte; PNGs through :func:`image_io.write_png` in place of
+    ``cv2.imwrite``, their pixels as this module renders them. Returns
+    (settings_path, out_dir)."""
+    import os
+
+    from .image_io import write_png
+    from .trajectory import _R_to_quat
+
+    os.makedirs(os.path.join(out_dir, "rgb"), exist_ok=True)
+    if sensor == "rgbd":
+        os.makedirs(os.path.join(out_dir, "depth"), exist_ok=True)
+    K4 = np.array([fx, fx, w / 2.0, h / 2.0])
+    stream = planar_stream(
+        n_frames=n_frames, h=h, w=w, fx=fx, fy=fx, seed=seed, motion=motion,
+        plane_half=plane_half, relief=True, noise=4.0,
+    )
+    rgb_lines, depth_lines, assoc_lines, gt_lines = [], [], [], []
+    for i, (img, T_cw) in enumerate(stream):
+        ts = i / fps
+        name = f"{ts:.6f}.png"
+        write_png(os.path.join(out_dir, "rgb", name), np.clip(img, 0, 255).astype(np.uint8))
+        rgb_lines.append(f"{ts:.6f} rgb/{name}")
+        if sensor == "rgbd":
+            d = planar_depth(T_cw, K4, h, w, relief=True)
+            d16 = np.clip(d * depth_factor, 0, 65535).astype(np.uint16)
+            write_png(os.path.join(out_dir, "depth", name), d16)
+            depth_lines.append(f"{ts:.6f} depth/{name}")
+            assoc_lines.append(f"{ts:.6f} rgb/{name} {ts:.6f} depth/{name}")
+        # TUM groundtruth is T_wc (camera pose in world)
+        R_wc = T_cw[:3, :3].T
+        C = -R_wc @ T_cw[:3, 3]
+        qx, qy, qz, qw = _R_to_quat(R_wc)
+        gt_lines.append(
+            f"{ts:.6f} {C[0]:.6f} {C[1]:.6f} {C[2]:.6f} "
+            f"{qx:.6f} {qy:.6f} {qz:.6f} {qw:.6f}"
+        )
+    hdr = "# synthetic TUM-format sequence\n# timestamp filename\n"
+    with open(os.path.join(out_dir, "rgb.txt"), "w") as f:
+        f.write(hdr + "\n".join(rgb_lines) + "\n")
+    with open(os.path.join(out_dir, "groundtruth.txt"), "w") as f:
+        f.write(
+            "# ground truth trajectory\n# timestamp tx ty tz qx qy qz qw\n"
+            + "\n".join(gt_lines) + "\n"
+        )
+    if sensor == "rgbd":
+        with open(os.path.join(out_dir, "depth.txt"), "w") as f:
+            f.write(hdr + "\n".join(depth_lines) + "\n")
+        with open(os.path.join(out_dir, "associations.txt"), "w") as f:
+            f.write("\n".join(assoc_lines) + "\n")
+    settings_path = os.path.join(out_dir, "settings.yaml")
+    with open(settings_path, "w") as f:
+        f.write(
+            "%YAML:1.0\n"  # the reference-format directive
+            f"Camera.fx: {fx}\nCamera.fy: {fx}\n"
+            f"Camera.cx: {w / 2.0}\nCamera.cy: {h / 2.0}\n"
+            "Camera.k1: 0.0\nCamera.k2: 0.0\n"
+            "Camera.p1: 0.0\nCamera.p2: 0.0\nCamera.k3: 0.0\n"
+            f"Camera.fps: {fps}\nCamera.RGB: 1\n"
+            # bf = fx * baseline, which RGB-D and stereo need: the
+            # close-point gate is depth < ThDepth * bf / fx
+            f"Camera.bf: {0.15 * fx:.1f}\n"
+            f"ORBextractor.nFeatures: {n_features}\n"
+            "ORBextractor.scaleFactor: 1.2\nORBextractor.nLevels: 8\n"
+            "ORBextractor.iniThFAST: 20\nORBextractor.minThFAST: 7\n"
+            "ThDepth: 40.0\n"
+            f"DepthMapFactor: {depth_factor}\n"
+        )
+    return settings_path, out_dir
+
+
+def write_kitti_sequence(
+    out_dir: str,
+    n_frames: int = 120,
+    h: int = 240,
+    w: int = 320,
+    fx: float = 260.0,
+    baseline: float = 0.12,
+    seed: int = 0,
+    motion: str = "strafe",
+    plane_half: float = 3.0,
+    n_features: int = 600,
+    fps: float = 10.0,
+):
+    """Write a synthetic stereo sequence in the KITTI odometry layout the
+    reference stereo driver consumes (Examples/Stereo/stereo_kitti.cc
+    LoadImages): ``image_0/`` + ``image_1/`` grayscale pairs,
+    ``times.txt``, a ``poses.txt`` ground truth (3x4 T_wc rows, the KITTI
+    devkit format), and a reference-format settings YAML with
+    ``Camera.bf = fx * baseline``. Returns (settings_path, out_dir)."""
+    import os
+
+    from .image_io import write_png
+
+    os.makedirs(os.path.join(out_dir, "image_0"), exist_ok=True)
+    os.makedirs(os.path.join(out_dir, "image_1"), exist_ok=True)
+    K3 = np.array([[fx, 0, w / 2.0], [0, fx, h / 2.0], [0, 0, 1.0]])
+    tex = _texture(2048, seed)
+    relief_tex = _texture(512, seed + 77)
+    noise = 4.0
+    rng_r = np.random.RandomState(seed + 979)
+    stream = planar_stream(
+        n_frames=n_frames, h=h, w=w, fx=fx, fy=fx, seed=seed, motion=motion,
+        plane_half=plane_half, relief=True, noise=noise,
+    )
+    times, gt_rows = [], []
+    for i, (img_l, T_cw) in enumerate(stream):
+        img_r = render_plane(
+            tex, stereo_right_pose(T_cw, baseline), K3, h, w,
+            plane_half=plane_half, relief_tex=relief_tex,
+            noise=noise, noise_rng=rng_r,
+        )
+        for sub, img in (("image_0", img_l), ("image_1", img_r)):
+            write_png(os.path.join(out_dir, sub, f"{i:06d}.png"),
+                      np.clip(img, 0, 255).astype(np.uint8))
+        times.append(f"{i / fps:.6e}")
+        R_wc = T_cw[:3, :3].T
+        C = -R_wc @ T_cw[:3, 3]
+        M = np.concatenate([R_wc, C[:, None]], axis=1)
+        gt_rows.append(" ".join(f"{x:.9e}" for x in M.reshape(-1)))
+    with open(os.path.join(out_dir, "times.txt"), "w") as f:
+        f.write("\n".join(times) + "\n")
+    with open(os.path.join(out_dir, "poses.txt"), "w") as f:
+        f.write("\n".join(gt_rows) + "\n")
+    settings_path = os.path.join(out_dir, "settings.yaml")
+    with open(settings_path, "w") as f:
+        f.write(
+            "%YAML:1.0\n"
+            f"Camera.fx: {fx}\nCamera.fy: {fx}\n"
+            f"Camera.cx: {w / 2.0}\nCamera.cy: {h / 2.0}\n"
+            "Camera.k1: 0.0\nCamera.k2: 0.0\n"
+            "Camera.p1: 0.0\nCamera.p2: 0.0\n"
+            f"Camera.fps: {fps}\nCamera.RGB: 1\n"
+            f"Camera.bf: {baseline * fx:.4f}\n"
+            f"ORBextractor.nFeatures: {n_features}\n"
+            "ORBextractor.scaleFactor: 1.2\nORBextractor.nLevels: 8\n"
+            "ORBextractor.iniThFAST: 20\nORBextractor.minThFAST: 7\n"
+            "ThDepth: 40.0\n"
+        )
+    return settings_path, out_dir
