@@ -70,7 +70,17 @@ Phases (any failure exits non-zero before the result line):
      on 40 frames, each trajectory file read back, the kernel's launches
      counted per driver under the rule above; then mono_tum through
      ``python -X importtime -m`` on 30 frames, no JAX module imported;
-  7. distributed BA: a 1-rank NCCL ``dist_ba_solve`` against ``ba_solve`` on
+  7. the measuring tools (``orbslam2_with_quadrics_tpu_torch/scripts``), each
+     through its ``main`` on the card: ``bench_ba`` (PCG and dense LM
+     iterations per second), ``profile_lba``, ``profile_track`` and
+     ``bench_profile`` (their kernel launches held to the rule above, a bare
+     ``match_by_projection`` call counting 1), ``train_vocab`` at 48 frames x
+     1,000 features and 10^4 words (its retrieval must hit the top 5),
+     ``debug_oab`` on 300 frames (every row: ``n_reachable`` and
+     ``n_window`` at most ``n_frustum``, a live keyframe) and
+     ``bench_dist_ba`` at 1 and 2 ranks (the 2-rank cost against
+     ``ba_solve``); the phase's seconds on a line of their own;
+  8. distributed BA: a 1-rank NCCL ``dist_ba_solve`` against ``ba_solve`` on
      a KITTI-00-scale problem built on the card (1,400 keyframes, 140,000
      points, 5,000,000 stereo edges), timed, with its peak memory; the
      dryrun problem over 2 spawned gloo ranks on CUDA tensors against one
@@ -678,8 +688,10 @@ def counted_calls(cuda: bool):
     """While the block runs, count the calls that the per-frame launch rule
     allows for: a tracked frame is one ``track_frame`` call
     (relocalization's included), a mapping pass one ``_insert_and_map``
-    (pipelined) or ``_insert_keyframe`` (synchronous) call, and each of the
-    three loop-closing searches is counted by its own function. On the card
+    (pipelined) or ``_insert_keyframe`` (synchronous) call, each of the
+    three loop-closing searches is counted by its own function, and a
+    ``match_by_projection`` call made outside all of these (by a tool) is
+    one call of its own. On the card
     each mapping pass is timed by two CUDA events. Yields (the counts, the
     mapping passes' event pairs)."""
     from orbslam2_with_quadrics_tpu_torch.models import loop_closing as lc
@@ -688,35 +700,53 @@ def counted_calls(cuda: bool):
     from orbslam2_with_quadrics_tpu_torch.ops import matching
 
     n_calls = {"frames": 0, "map_passes": 0, "mutual_match": 0, "loop_proj": 0,
-               "loop_fuse": 0}
+               "loop_fuse": 0, "match": 0}
     map_events = []
+    depth = [0]  # > 0 inside one of the counted calls
     patched = [(tr, "track_frame", "frames"), (matching, "mutual_match", "mutual_match"),
                (lc, "project_loop_points", "loop_proj"), (lc, "fuse_loop_points", "loop_fuse")]
     originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patched]
     originals += [(sysm, "_insert_and_map", sysm._insert_and_map),
-                  (sysm.System, "_insert_keyframe", sysm.System._insert_keyframe)]
+                  (sysm.System, "_insert_keyframe", sysm.System._insert_keyframe),
+                  (matching, "match_by_projection", matching.match_by_projection)]
 
     def counted(fn, key):
         def call(*a, **k):
             n_calls[key] += 1
+            depth[0] += 1
+            try:
+                return fn(*a, **k)
+            finally:
+                depth[0] -= 1
+        return call
+
+    def bare(fn):  # a match_by_projection call of a tool, outside every counted call
+        def call(*a, **k):
+            if depth[0] == 0:
+                n_calls["match"] += 1
             return fn(*a, **k)
         return call
 
     def timed(fn):  # device time of each mapping pass
         def call(*a, **k):
             n_calls["map_passes"] += 1
-            if not cuda:
-                return fn(*a, **k)
-            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-            out = fn(*a, **k)
-            ev[1].record()
-            map_events.append(ev)
-            return out
+            depth[0] += 1
+            try:
+                if not cuda:
+                    return fn(*a, **k)
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                out = fn(*a, **k)
+                ev[1].record()
+                map_events.append(ev)
+                return out
+            finally:
+                depth[0] -= 1
         return call
 
     for mod, attr, key in patched:
         setattr(mod, attr, counted(getattr(mod, attr), key))
+    matching.match_by_projection = bare(matching.match_by_projection)
     sysm._insert_and_map = timed(sysm._insert_and_map)
     sysm.System._insert_keyframe = timed(sysm.System._insert_keyframe)
     try:
@@ -730,11 +760,11 @@ def launch_checks(n: int, n_calls: dict):
     """The per-frame launch rule for ``n`` launches of masked_hamming_best2
     over the calls ``counted_calls`` counted: (ok, what) pairs."""
     most = (2 * n_calls["frames"] + 2 * n_calls["map_passes"] + n_calls["mutual_match"]
-            + n_calls["loop_proj"] + n_calls["loop_fuse"])
+            + n_calls["loop_proj"] + n_calls["loop_fuse"] + n_calls["match"])
     return [(n > 0, "masked_hamming_best2 launched by the path"),
             (n <= most, f"at most 2 launches per tracked frame, 2 per mapping pass "
-                        f"and 1 per mutual match, loop projection and loop fuse "
-                        f"({n} launches, limit {most})")]
+                        f"and 1 per mutual match, loop projection, loop fuse and bare "
+                        f"match_by_projection call ({n} launches, limit {most})")]
 
 
 def run_main_path(name="mono", device="cuda", sync=False, log_every=5, rendered=None,
@@ -1271,6 +1301,119 @@ def phase_drivers(smi, written, out_dir, device="cuda"):
     return runs
 
 
+# the tools phase's sizes: the tools' defaults, except train_vocab (48 frames x
+# 1,000 features, 10^4 words) and bench_dist_ba (16,384 edges per rank); a
+# rehearsal on the CPU sets smaller ones
+TOOL_SIZES = {
+    "bench_ba": (32, 8192, 1024),
+    "profile_lba": (49, 1024, 8192),
+    "frame": {},
+    "train_vocab": ["--frames", "48", "--features", "1000", "--k", "10", "--levels", "4"],
+    "debug_oab": 300,
+    "bench_dist_ba": dict(obs_per_rank=16384),
+}
+
+
+def phase_tools(smi, out_dir, device="cuda"):
+    """The port's measuring tools on the card, each through its ``main``:
+    ``bench_ba`` (PCG and dense, both JSON lines), ``profile_lba``,
+    ``profile_track`` and ``bench_profile`` (the kernel's launches set to 0
+    before each and held to the launch rule after), ``train_vocab`` at a
+    reduced size into ``out_dir`` (its retrieval must hit the top 5),
+    ``debug_oab`` (``n_reachable`` and ``n_window`` within ``n_frustum`` and
+    a live keyframe on every row; its launches held to the rule) and
+    ``bench_dist_ba`` at 1 and 2 ranks (the 2-rank cost within 1e-3 of
+    ``ba_solve`` on the same problem). Returns (the tools' results, the
+    kernel's launches by tool)."""
+    from orbslam2_with_quadrics_tpu_torch.ops import ba
+    from orbslam2_with_quadrics_tpu_torch.ops import cuda_kernels as ck
+    from orbslam2_with_quadrics_tpu_torch.scripts import (bench_ba, bench_dist_ba,
+                                                          bench_profile, common, debug_oab,
+                                                          profile_lba, profile_track,
+                                                          train_vocab)
+
+    cuda = device == "cuda"
+    t_phase = time.time()
+    out, launches = {}, {}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def require(ok, what):
+        if not ok:
+            raise AssertionError(f"tools check failed: {what}")
+
+    def counted(name, fn):
+        sync()
+        with counted_calls(cuda) as (n_calls, _):
+            ck.reset_launch_counts()
+            res = fn()
+            sync()
+            n = ck.LAUNCHES["masked_hamming_best2"]
+        launches[f"tool:{name}"] = n
+        log(f"[tools] {name}: {n} kernel launches over {json.dumps(n_calls)}")
+        if cuda:
+            for ok, what in launch_checks(n, n_calls):
+                require(ok, f"{name}: {what}")
+        return res
+
+    t0 = time.time()
+    out["bench_ba"] = bench_ba.main(*TOOL_SIZES["bench_ba"], device=device)
+    for r in out["bench_ba"]:
+        require(r["value"] > 0 and np.isfinite(r["final_cost"]), f"bench_ba {r}")
+    log(f"[tools] bench_ba in {time.time() - t0:.1f} s ({smi})")
+
+    t0 = time.time()
+    with torch.no_grad():
+        out["profile_lba"] = profile_lba.main(
+            device, prob=profile_lba.build_problem(*TOOL_SIZES["profile_lba"], device=device))
+    require(all(v > 0 and np.isfinite(v) for v in out["profile_lba"]["table_ms"].values()),
+            f"profile_lba {out['profile_lba']['table_ms']}")
+    log(f"[tools] profile_lba in {time.time() - t0:.1f} s ({smi})")
+
+    for name, mod, n_live in (("profile_track", profile_track, 16),
+                              ("bench_profile", bench_profile, 8)):
+        t0 = time.time()
+        with torch.no_grad():
+            wl = common.frame_workload(device, n_live_kf=n_live, **TOOL_SIZES["frame"])
+            out[name] = counted(name, lambda: mod.main(device, 1, wl))
+        del wl
+        log(f"[tools] {name} in {time.time() - t0:.1f} s ({smi})")
+
+    t0 = time.time()
+    rep = train_vocab.main(TOOL_SIZES["train_vocab"] + [
+        "--out", os.path.join(out_dir, "vocab_tool.npz"), "--device", device])
+    out["train_vocab"] = rep
+    require(rep["retrieval"]["revisit_top5_hit"], f"train_vocab retrieval {rep['retrieval']}")
+    log(f"[tools] train_vocab in {time.time() - t0:.1f} s ({smi})")
+
+    t0 = time.time()
+    rows = counted("debug_oab", lambda: debug_oab.main(TOOL_SIZES["debug_oab"], device=device))
+    require(len(rows) > 0, "debug_oab printed no row")
+    for r in rows:
+        require(r["n_reachable"] <= r["n_frustum"] and r["n_window"] <= r["n_frustum"]
+                and r["kfs_live"] >= 1, f"debug_oab row {r}")
+    out["debug_oab"] = rows
+    log(f"[tools] debug_oab in {time.time() - t0:.1f} s ({smi})")
+
+    t0 = time.time()
+    kw = TOOL_SIZES["bench_dist_ba"]
+    dist_out = bench_dist_ba.main(ranks=(1, 2), device=device, **kw)
+    ref_prob = bench_dist_ba.build(2, device=device, **kw)
+    with torch.no_grad():
+        _, ref_cost = ba.ba_solve(ref_prob, n_iters=bench_dist_ba.N_LM_ITERS,
+                                  cg_iters=bench_dist_ba.CG_ITERS)
+    ref_cost = float(ref_cost)
+    dc = abs(dist_out["final_cost"]["2"] - ref_cost) / max(ref_cost, 1.0)
+    log(f"[tools] bench_dist_ba: 2 ranks' cost {dist_out['final_cost']['2']:.3f}, one "
+        f"process {ref_cost:.3f} ({dc:.2e} relative); in {time.time() - t0:.1f} s ({smi})")
+    require(dc <= 1e-3, f"bench_dist_ba's 2-rank cost against ba_solve: {dc}")
+    out["bench_dist_ba"] = dist_out
+    log(f"[tools] phase seconds {time.time() - t_phase:.1f}")
+    return out, launches
+
+
 def free_port() -> int:
     import socket
 
@@ -1558,6 +1701,7 @@ def main() -> int:
         runs += [run_main_path("reloc"),
                  run_main_path("loop", log_every=50, rendered=orbit.result())]
         runs += phase_drivers(smi, datasets.result(), tmp)
+        _, tool_launches = phase_tools(smi, tmp)
     dist_out = phase_dist(smi)
     log(f"[dist] {json.dumps(dist_out)}")
     by_path = {}
@@ -1576,6 +1720,7 @@ def main() -> int:
                 f"{[round(x, 2) for x in q['quadric_init_ms']]}; median IoU {q['iou_median']} "
                 f"over {q['iou_n']} keyframes ({smi})")
         log(smi)
+    by_path.update(tool_launches)
     mono = next(r for r in runs if r["path"] == "mono")
     per_frame = ((by_path["mono"] - 2 * mono["n_map_passes"])
                  / max(mono["n_frame_steps"], 1))
