@@ -80,13 +80,22 @@ Phases (any failure exits non-zero before the result line):
      ``n_window`` at most ``n_frustum``, a live keyframe) and
      ``bench_dist_ba`` at 1 and 2 ranks (the 2-rank cost against
      ``ba_solve``); the phase's seconds on a line of their own;
-  8. distributed BA: a 1-rank NCCL ``dist_ba_solve`` against ``ba_solve`` on
+  8. the benchmark (``scripts/bench.py``, the twin of the JAX package's
+     ``bench.py``) through its ``main``: tracking frames per second over 50
+     dependent frames, ``fps_amortized``, each stage, the speed-of-light
+     table; every stage finite and positive, ``fps_amortized`` under
+     ``value``, each share of the bound at most 100%, the kernel's launches
+     held to the rule above; its JSON line logged with the card's name and
+     power limit;
+  9. distributed BA: a 1-rank NCCL ``dist_ba_solve`` against ``ba_solve`` on
      a KITTI-00-scale problem built on the card (1,400 keyframes, 140,000
      points, 5,000,000 stereo edges), timed, with its peak memory; the
      dryrun problem over 2 spawned gloo ranks on CUDA tensors against one
      process; ``dist_score_database`` over those ranks on a [1023 x 16384]
      database. Multi-GPU NCCL scaling is not measured (one card).
-Local BA runs the dense-Schur solver on every path (the map is on the card).
+The mapping pass takes the accelerator program on every path (the map is on
+the card): dense-Schur local BA, and point statistics refreshed over the new
+keyframe's covisible neighbourhood only (``update_point_stats_local``).
 The orbit's frames render, and the drivers' datasets are written, in a
 worker process during the first phases.
 The line before the last is a JSON summary of the kernels; the last line is
@@ -181,18 +190,14 @@ def bound_ms(args, level_tol: int = 1):
     over the fp32 rate, (c) 8 POPC for every pair that this run's data
     admits over the POPC rate. Returns (bound, bound with every pair
     admitted, what bounds it) in ms."""
+    from orbslam2_with_quadrics_tpu_torch.scripts.bench import admitted_pairs
+
     qdesc, quv, qrad, qlvl, qvalid, tdesc, tuv, tlvl, tvalid = args
     rows, n = qrad.numel(), tdesc.shape[-2]
     nbytes = sum(t.numel() * t.element_size() for t in args) + 3 * 4 * rows
     tv = tvalid if tvalid.dim() == qvalid.dim() else tvalid.expand(qvalid.shape[:-1] + (n,))
     tested = int((qvalid.sum(-1) * tv.sum(-1)).sum())
-    tu = tuv if tuv.dim() == quv.dim() else tuv.expand(quv.shape[:-2] + tuv.shape)
-    tl = tlvl if tlvl.dim() == qlvl.dim() else tlvl.expand(qlvl.shape[:-1] + (n,))
-    admitted = int((
-        (torch.abs(quv[..., :, None, 0] - tu[..., None, :, 0]) <= qrad[..., None])
-        & (torch.abs(quv[..., :, None, 1] - tu[..., None, :, 1]) <= qrad[..., None])
-        & (torch.abs(tl[..., None, :] - qlvl[..., None]) <= level_tol)
-        & qvalid[..., None] & tv[..., None, :]).sum())
+    admitted = admitted_pairs(args, level_tol)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = max(4 * tested / FP32_OPS_PER_S, 8 * admitted / POPC_PER_S) * 1e3
     all_admitted = max(t_bytes, 8 * rows * n / POPC_PER_S * 1e3)
@@ -1414,6 +1419,59 @@ def phase_tools(smi, out_dir, device="cuda"):
     return out, launches
 
 
+BENCH_FRAMES = 50
+
+
+def phase_bench(smi, device="cuda"):
+    """``scripts.bench.main`` (the twin of the JAX package's ``bench.py``) at
+    its workload (``TOOL_SIZES["frame"]``, 16 live keyframes),
+    ``BENCH_FRAMES`` dependent frames and one pass over the workload's
+    images per timed stage, its kernel launches counted and held
+    to the launch rule: every stage and ``value`` finite and positive,
+    ``fps_amortized`` under ``value``, each ``pct_of_sol`` at most 100.
+    Returns (its JSON, the kernel's launches as ``tool:bench``)."""
+    from orbslam2_with_quadrics_tpu_torch.ops import cuda_kernels as ck
+    from orbslam2_with_quadrics_tpu_torch.scripts import bench, common
+
+    cuda = device == "cuda"
+    t0 = time.time()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def require(ok, what):
+        if not ok:
+            raise AssertionError(f"bench check failed: {what}")
+
+    with torch.no_grad():
+        wl = common.frame_workload(device, n_live_kf=16, **TOOL_SIZES["frame"])
+        sync()
+        with counted_calls(cuda) as (n_calls, _):
+            ck.reset_launch_counts()
+            out = bench.main(device, BENCH_FRAMES, wl, reps=1)
+            sync()
+            n = ck.LAUNCHES["masked_hamming_best2"]
+    log(f"[bench] value {out['value']:.3f} frames/s, fps_amortized "
+        f"{out['fps_amortized']:.3f}, frame p50 / p90 {out['frame_ms']['p50']:.2f} / "
+        f"{out['frame_ms']['p90']:.2f} ms, map_pipeline_fused "
+        f"{out['stage_ms']['map_pipeline_fused']:.2f} ms ({smi}; its JSON line above)")
+    log(f"[bench] {n} kernel launches over {json.dumps(n_calls)}")
+    stages = {k: v for k, v in out["stage_ms"].items() if k != "note"}
+    for k, v in list(stages.items()) + [("value", out["value"])]:
+        require(np.isfinite(v) and v > 0, f"{k} = {v}")
+    require(out["fps_amortized"] < out["value"],
+            f"fps_amortized {out['fps_amortized']} not under value {out['value']}")
+    if cuda:
+        for k in ("extract", "frame"):
+            pct = out["speed_of_light"][k]["pct_of_sol"]
+            require(0 < pct <= 100, f"{k} pct_of_sol = {pct}")
+        for ok, what in launch_checks(n, n_calls):
+            require(ok, what)
+    log(f"[bench] phase seconds {time.time() - t0:.1f} ({smi})")
+    return out, {"tool:bench": n}
+
+
 def free_port() -> int:
     import socket
 
@@ -1702,6 +1760,7 @@ def main() -> int:
                  run_main_path("loop", log_every=50, rendered=orbit.result())]
         runs += phase_drivers(smi, datasets.result(), tmp)
         _, tool_launches = phase_tools(smi, tmp)
+        _, bench_launches = phase_bench(smi)
     dist_out = phase_dist(smi)
     log(f"[dist] {json.dumps(dist_out)}")
     by_path = {}
@@ -1721,6 +1780,7 @@ def main() -> int:
                 f"over {q['iou_n']} keyframes ({smi})")
         log(smi)
     by_path.update(tool_launches)
+    by_path.update(bench_launches)
     mono = next(r for r in runs if r["path"] == "mono")
     per_frame = ((by_path["mono"] - 2 * mono["n_map_passes"])
                  / max(mono["n_frame_steps"], 1))

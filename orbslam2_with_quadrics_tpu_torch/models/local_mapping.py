@@ -407,6 +407,14 @@ def local_ba_problem(m: ms.MapState, kf_id, Kc, bf, inv_sigma2_tab, window: int 
     return prob, cams, cam_ok, g_obs, g_ok
 
 
+def on_accelerator(m: ms.MapState) -> bool:
+    """Whether the mapping pass takes the accelerator program: the
+    dense-Schur local BA and the neighbourhood-local point statistics. The
+    map's device decides, as the backend does in the reference (the card:
+    yes; the CPU: PCG local BA and the full-pool statistics)."""
+    return m.pt_pos.device.type == "cuda"
+
+
 def run_local_ba(m: ms.MapState, kf_id, Kc, bf, inv_sigma2_tab, window: int = 16,
                  n_iters: int = 10, boundary: int = 32, W=None):
     """Local BA over the covisibility window of ``kf_id``
@@ -415,8 +423,7 @@ def run_local_ba(m: ms.MapState, kf_id, Kc, bf, inv_sigma2_tab, window: int = 16
     prob, cams, cam_ok, g_obs, g_ok = local_ba_problem(m, kf_id, Kc, bf, inv_sigma2_tab,
                                                        window, boundary, W)
     C, N = g_obs.shape
-    # the device decides the solver, as the backend does in the reference
-    if m.pt_pos.device.type == "cuda":
+    if on_accelerator(m):
         prob, cost = _dense_schedule(prob, (C, N), 4, min(n_iters, 6))
     else:
         prob, cost = _schedule(prob, 4, min(n_iters, 6))

@@ -27,7 +27,7 @@ import torch
 
 from ..ops import lie
 from ..ops.matching import popcount_words
-from ..ops.orb import pack_bits
+from ..ops.orb import pack_bits, topk_stable
 
 
 @dataclasses.dataclass(frozen=True)
@@ -349,6 +349,97 @@ def update_point_stats(m: MapState, scale_factors):
         pt_normal=torch.where(has[:, None], normal, m.pt_normal),
         pt_max_dist=torch.where(has, 1.2 * max_dist, m.pt_max_dist),
         pt_min_dist=torch.where(has, 0.8 * min_dist, m.pt_min_dist),
+    )
+
+
+_DROP_ROWS = 1024
+
+
+def update_point_stats_local(m: MapState, scale_factors, kf_id, n_neighbors: int = 10,
+                             n_local: int = 4096, W=None):
+    """:func:`update_point_stats` restricted to the points that the keyframe
+    ``kf_id`` and its top ``n_neighbors`` covisible keyframes observe (ties
+    in ascending index), compacted into the smallest ``n_local`` point ids.
+    Each touched point's statistics are reduced over every valid
+    observation of it in the whole [K, N] table; its descriptor is the
+    bitwise majority (not the medoid of the full-pool pass). Points that
+    are not touched, or that no valid observation sees, keep their rows bit
+    for bit. The mapping pass's program on the card, as the reference's on
+    its accelerator (``models/map_state.py::update_point_stats_local``).
+
+    Segment sums into L + ``_DROP_ROWS`` rows (the rows past L take the
+    observations of untouched points, spread over them, and are dropped):
+    one [K*N, 6] table (normal, distance, level, count) and the 256
+    descriptor bits one 32-bit word at a time, so that no [K*N, 256] table
+    is built. Counts, levels and bits are integers in float32, exact in any
+    order of summation; every size is fixed, so nothing is read back to the
+    host."""
+    K, N = m.kf_obs_point.shape
+    P = m.pt_pos.shape[0]
+    L = n_local
+    dev = m.pt_pos.device
+    if W is None:
+        W = covisibility(m)
+    kf = torch.as_tensor(kf_id, device=dev).to(torch.int64).reshape(1)
+    nb_w, nb_ids = topk_stable(W[kf[0]], min(n_neighbors, K))
+    cams = torch.cat([kf, nb_ids])
+    cam_ok = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), nb_w > 0])
+    rows = m.kf_obs_point[cams].to(torch.int64)
+    row_ok = (rows >= 0) & m.kf_kp_valid[cams] & (cam_ok & m.kf_valid[cams])[:, None]
+
+    # the sorted unique touched ids, the smallest L, P-filled: a sort, first
+    # occurrences and a running count (jnp.unique(size=L, fill_value=P))
+    ts, _ = torch.sort(torch.where(row_ok, rows, P).reshape(-1))
+    first = torch.ones_like(ts, dtype=torch.bool)
+    first[1:] = ts[1:] != ts[:-1]
+    rank = torch.cumsum(first, 0) - 1
+    keep = first & (rank < L)
+    touched = torch.full((L + 1,), P, dtype=torch.int64, device=dev).scatter(
+        0, torch.where(keep, rank, L), torch.where(keep, ts, P))[:L]
+    slot = torch.arange(L, device=dev)
+    loc_of = torch.full((P + 1,), L, dtype=torch.int64, device=dev).scatter(
+        0, touched, torch.where(touched < P, slot, L))
+    obs = m.kf_obs_point.reshape(-1).to(torch.int64)
+    ploc = loc_of[torch.where(_obs_mask(m).reshape(-1), obs, P)]          # [K*N]
+    # most observations are of untouched points: one shared drop row
+    # serializes their atomic adds on the card (6.4 ms of device time per
+    # call at K*N = 262,144 on an H100, profile_port.py), so they are spread
+    # over _DROP_ROWS rows
+    spread = L + torch.arange(K * N, device=dev) % _DROP_ROWS
+    ploc = torch.where(ploc < L, ploc, spread)
+
+    def segment_sum(vals):
+        return torch.zeros((L + _DROP_ROWS, vals.shape[1]), dtype=vals.dtype,
+                           device=dev).index_add(0, ploc, vals)[:L]
+
+    centers = camera_centers(m).repeat_interleave(N, dim=0)              # [K*N,3]
+    vec = m.pt_pos[torch.clamp(obs, 0, P - 1)] - centers
+    dist = torch.linalg.norm(vec, dim=-1, keepdim=True)
+    lvl = m.kf_level.reshape(K * N, 1).to(torch.float32)
+    red = segment_sum(torch.cat([vec / torch.clamp(dist, min=1e-9), dist, lvl,
+                                 torch.ones_like(dist)], dim=-1))         # [L,6]
+    desc = m.kf_desc.reshape(K * N, 8)
+    shifts = torch.arange(32, device=dev, dtype=torch.int32)
+    votes = torch.cat([segment_sum(((desc[:, w, None] >> shifts) & 1).to(torch.float32))
+                       for w in range(8)], dim=-1)                       # [L,256]
+
+    cnt = red[:, 5]
+    den = torch.clamp(cnt, min=1.0)
+    maj_desc = pack_bits(votes > 0.5 * den[:, None])                     # [L,8]
+    normal = red[:, :3]
+    normal = normal / torch.clamp(torch.linalg.norm(normal, dim=-1, keepdim=True), min=1e-9)
+    mean_dist = red[:, 3] / den
+    mean_lvl = red[:, 4] / den
+    n_levels = scale_factors.shape[0]
+    max_dist = mean_dist * scale_factors[torch.clamp(mean_lvl.to(torch.int64), 0, n_levels - 1)]
+    min_dist = max_dist / scale_factors[n_levels - 1]
+
+    has = cnt > 0    # touched ids are distinct, so the writes are too
+    return m._replace(
+        pt_desc=set_rows(m.pt_desc, touched, maj_desc, has),
+        pt_normal=set_rows(m.pt_normal, touched, normal, has),
+        pt_max_dist=set_rows(m.pt_max_dist, touched, 1.2 * max_dist, has),
+        pt_min_dist=set_rows(m.pt_min_dist, touched, 0.8 * min_dist, has),
     )
 
 

@@ -1585,12 +1585,21 @@ def _insert_and_map(m: ms.MapState, feats, T_cw, frame_id, parent, obs_row, prot
     W1 = ms.covisibility(m)
     m, n_new = lm.create_new_points(m, slot, Kc, bf, n_levels=fcfg.n_levels,
                                     scale=fcfg.scale_factor, W=W1)
-    # stats BEFORE fuse: fresh points need real scale bands
-    m = ms.update_point_stats(m, sf)
+    # stats BEFORE fuse: fresh points need real scale bands. On the card
+    # only the new keyframe's neighbourhood's points (as the reference on its
+    # accelerator); on the CPU the full pool (as the reference on its CPU)
+    local = lm.on_accelerator(m)
+
+    def stats(mm, W):
+        if local:
+            return ms.update_point_stats_local(mm, sf, slot, W=W)
+        return ms.update_point_stats(mm, sf)
+
+    m = stats(m, W1)
     m = lm.fuse_neighbors(m, slot, Kc, height=fcfg.height, width=fcfg.width,
                           n_levels=fcfg.n_levels, scale=fcfg.scale_factor, W=W1)
     W2 = ms.covisibility(m)
-    m = ms.update_point_stats(m, sf)
+    m = stats(m, W2)
     m, _ = lm.run_local_ba(m, slot, Kc, bf, inv_sigma2, window=window, W=W2)
     valid_before = m.kf_valid
     m = lm.cull_keyframes(m, slot, protect, W=W2, n_levels=fcfg.n_levels)

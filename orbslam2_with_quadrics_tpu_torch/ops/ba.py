@@ -182,6 +182,16 @@ def edge_chi2(prob: BAProblem):
     return chi2, (chi2 < gate) & (ok > 0)
 
 
+def local_ba(prob: BAProblem, cg_iters: int = 40):
+    """The reference's LocalBundleAdjustment schedule over :func:`ba_solve`:
+    5 robust iterations, purge the outlier edges, 10 more without the
+    robust kernel (src/Optimizer.cc:653-707). Returns (prob, final_cost)."""
+    prob, _ = ba_solve(prob, n_iters=5, cg_iters=cg_iters, use_huber=True)
+    _, inl = edge_chi2(prob)
+    prob = prob._replace(valid=prob.valid * inl.to(prob.valid.dtype))
+    return ba_solve(prob, n_iters=10, cg_iters=cg_iters, use_huber=False)
+
+
 _INDEX_FIELDS = ("cam_idx", "pnt_idx")
 
 

@@ -10,7 +10,9 @@ the retraction at ``xi = 0`` (``lie.jacobian_at_zero``).
 The normal equations are solved matrix-free: ``H x`` is two edge sweeps
 (gather endpoint blocks, per-edge 7x7 products, summed back by endpoint),
 preconditioned CG with the block-diagonal [K,7,7] inverse. Memory is
-O(K*49 + E*98).
+O(K*49 + E*98). :func:`optimize_pose_graph_dense` builds the whole
+[7K, 7K] system instead: the ground truth the matrix-free solver is held
+against.
 """
 
 from __future__ import annotations
@@ -130,6 +132,44 @@ def optimize_pose_graph(S_poses, edge_i, edge_j, S_meas_ji, edge_w, fixed,
             Minv, cg_iters,
         )
         dx = dx * (1.0 - fixed)[:, None]
+        S_new = lie.sim3_retract(Sp, dx)
+        new_cost = _graph_cost(S_new, edge_i, edge_j, S_meas_ji, edge_w)
+        ok = (new_cost < cost) & torch.all(torch.isfinite(dx))
+        Sp = torch.where(ok, S_new, Sp)
+        lam = torch.clamp(torch.where(ok, lam * 0.5, lam * 4.0), 1e-10, 1e6)
+        cost = torch.where(ok, new_cost, cost)
+    return Sp
+
+
+def optimize_pose_graph_dense(S_poses, edge_i, edge_j, S_meas_ji, edge_w, fixed,
+                              iters: int = 20):
+    """Dense-Hessian LM over the same graph as :func:`optimize_pose_graph`
+    (the reference's ``optimize_pose_graph_dense``): the full [7K, 7K]
+    system, O(K^3) per step. A singular step gives NaN and is rejected, as
+    XLA's solve does (``linalg.solve`` raises instead). Returns [K,8]."""
+    K = S_poses.shape[0]
+    edge_i = edge_i.to(torch.int64)
+    edge_j = edge_j.to(torch.int64)
+    dt, dev = S_poses.dtype, S_poses.device
+    fix_diag = torch.diag(torch.repeat_interleave(fixed, 7) + 1e-8)
+    Sp = S_poses
+    lam = torch.as_tensor(1e-6, dtype=dt, device=dev)
+    cost = _graph_cost(Sp, edge_i, edge_j, S_meas_ji, edge_w)
+    for _ in range(iters):
+        r, Ji, Jj, _ = _edge_terms(Sp, edge_i, edge_j, S_meas_ji, edge_w, fixed)
+        H = torch.zeros((K, K, 7, 7), dtype=dt, device=dev)
+        for a, Ja in ((edge_i, Ji), (edge_j, Jj)):
+            for b, Jb in ((edge_i, Ji), (edge_j, Jj)):
+                H.index_put_((a, b), torch.einsum("e,eri,erj->eij", edge_w, Ja, Jb),
+                             accumulate=True)
+        H = H.permute(0, 2, 1, 3).reshape(7 * K, 7 * K) + fix_diag
+        wr = r * edge_w[:, None]
+        b = -_segment_sum(torch.einsum("eri,er->ei", Ji, wr), edge_i, K)
+        b = b - _segment_sum(torch.einsum("eri,er->ei", Jj, wr), edge_j, K)
+        Hd = H + lam * torch.diag(torch.diag(H))
+        dx, info = torch.linalg.solve_ex(Hd, b.reshape(7 * K))
+        dx = torch.where(info == 0, dx, torch.full_like(dx, float("nan")))
+        dx = dx.reshape(K, 7) * (1.0 - fixed)[:, None]
         S_new = lie.sim3_retract(Sp, dx)
         new_cost = _graph_cost(S_new, edge_i, edge_j, S_meas_ji, edge_w)
         ok = (new_cost < cost) & torch.all(torch.isfinite(dx))

@@ -26,7 +26,7 @@ from ..models import frontend as fe
 from ..models import map_state as ms
 from ..models import tracking as tr
 from ..ops import camera, lie, matching, orb
-from .eval_full import platform  # noqa: F401  (re-exported for the tools)
+from .eval_full import card_line, platform  # noqa: F401  (re-exported for the tools)
 
 
 def _sync(device):

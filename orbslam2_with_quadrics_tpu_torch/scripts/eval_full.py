@@ -97,15 +97,19 @@ def T_cw_to7(T):
     return np.concatenate([[qw, qx, qy, qz], T[:3, 3]]).astype(np.float32)
 
 
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
 def platform(device: str) -> str:
     """"cuda" with the card's name and power limit as nvidia-smi prints
     them, or "cpu"."""
     if torch.device(device).type != "cuda":
         return "cpu"
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    return f"cuda ({smi})"
+    return f"cuda ({card_line()})"
 
 
 def main(argv=None):

@@ -49,6 +49,7 @@ from orbslam2_with_quadrics_tpu_torch.models import system as sysm  # noqa: E402
 from orbslam2_with_quadrics_tpu_torch.models import tracking as tr  # noqa: E402
 from orbslam2_with_quadrics_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
 from orbslam2_with_quadrics_tpu_torch.ops import ba, matching, orb, quadrics, stereo  # noqa: E402
+from orbslam2_with_quadrics_tpu_torch.scripts.bench import union_ms  # noqa: E402
 
 # the stages, from the per-frame / per-keyframe programs down; each is
 # looked up through its module at call time, so patching the module
@@ -65,7 +66,8 @@ STAGES = [
     (lm, "fuse_neighbors"), (lm, "run_local_ba"), (ba, "ba_solve_dense"),
     (lm, "cull_keyframes"), (qm.QuadricManager, "joint_ba"),
     (quadrics, "quadric_ba_solve"), (quadrics, "quadric_init"),
-    (ms, "update_point_stats"), (ms, "covisibility"), (ms, "observation_matrix"),
+    (ms, "update_point_stats"), (ms, "update_point_stats_local"), (ms, "covisibility"),
+    (ms, "observation_matrix"),
     (ms, "obs_level_cum"),
 ]
 OUT_DIR = "chiprun_out/profile"
@@ -101,21 +103,11 @@ def restore(originals):
         setattr(mod, name, fn)
 
 
-def busy_ms(intervals):
-    """Length of the union of (start, end) intervals, in ms."""
-    total, end = 0.0, -np.inf
-    for s, e in sorted(intervals):
-        if e > end:
-            total += e - max(s, end)
-            end = e
-    return total / 1e3
-
-
 def analyse(prof, wall_ms, n_frames):
     events = prof.events()
     dev = [e for e in events
            if e.device_type == DeviceType.CUDA and not e.name.startswith("S:")]
-    busy = busy_ms([(e.time_range.start, e.time_range.end) for e in dev])
+    busy = union_ms([(e.time_range.start, e.time_range.end) for e in dev])
     stage_dev = {}
     for e in events:
         if e.device_type == DeviceType.CPU and e.name.startswith("S:"):

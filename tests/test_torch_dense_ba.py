@@ -14,6 +14,10 @@ carried across with ``ba_problem_from_numpy``). Tolerances:
   purged edge set identical, poses within 1e-4, cost within 1e-4 relative;
 - the port's dense solver against its own PCG ``ba_solve``: poses within
   1e-4, cost within 1e-3 relative (``tests/test_ba.py``'s bar for the pair);
+- ``local_ba`` (the reference's 5 robust + purge + 10 PCG schedule) on
+  ``tests/test_ba.py::test_ba_huber_survives_outliers``' problem drawn from
+  numpy seeds, 10% of its edges moved by 100 px: poses within 1e-4, the
+  purged ``valid`` mask identical, cost within 1e-3 relative;
 - ``_inv3x3`` against ``torch.linalg.inv``: 1e-5 relative; a matrix that is
   not positive definite gives a NaN step, which the LM test rejects.
 """
@@ -162,3 +166,46 @@ def test_inv3x3_and_cholesky_nan():
     assert not bool(acc)
     assert torch.equal(poses, prob.poses) and torch.equal(points, prob.points)
     assert torch.isfinite(cost)
+
+
+def huber_outlier_problem(seed, n_cams=6, n_pts=96, noise_px=0.1, bad_share=0.1):
+    """``tests/test_ba.py::make_problem``'s stereo scene (every point seen by
+    every camera, the first camera fixed at the truth) from a numpy seed,
+    with ``bad_share`` of the observations moved by 100 px of noise."""
+    rng = np.random.RandomState(seed)
+    Kc = jnp.asarray([500.0, 500.0, 320.0, 240.0])
+    bf = jnp.asarray(50.0)
+    pts = rng.uniform([-3.0, -2.0, 5.0], [3.0, 2.0, 12.0], (n_pts, 3)).astype(np.float32)
+    xi = rng.randn(n_cams, 6) * [0.02, 0.02, 0.02, 0.4, 0.1, 0.1]
+    xi[:, 3] += np.linspace(0, 1.5, n_cams)
+    poses_true = jlie.se3_exp(jnp.asarray(xi, jnp.float32))
+    ci = np.repeat(np.arange(n_cams, dtype=np.int32), n_pts)
+    pi = np.tile(np.arange(n_pts, dtype=np.int32), n_cams)
+    uvr, _ = jcam.project_stereo(Kc, bf, jlie.se3_apply(poses_true[ci], jnp.asarray(pts)[pi]))
+    uvr = np.asarray(uvr) + noise_px * rng.randn(len(ci), 3).astype(np.float32)
+    bad = rng.rand(len(ci)) < bad_share
+    uvr = np.where(bad[:, None], uvr + 100.0 * rng.randn(len(ci), 3), uvr).astype(np.float32)
+    poses0 = jax.vmap(jlie.se3_retract)(
+        poses_true, jnp.asarray(rng.randn(n_cams, 6).astype(np.float32) * 0.02))
+    poses0 = poses0.at[0].set(poses_true[0])
+    pts0 = pts + (0.05 * rng.randn(n_pts, 3)).astype(np.float32)
+    O = len(ci)
+    return jba.BAProblem(
+        poses=poses0, points=jnp.asarray(pts0), K=Kc, bf=bf, cam_idx=jnp.asarray(ci),
+        pnt_idx=jnp.asarray(pi), uvr=jnp.asarray(uvr), is_stereo=jnp.ones((O,)),
+        inv_sigma2=jnp.ones((O,)), valid=jnp.ones((O,)),
+        fixed_cam=jnp.zeros((n_cams,)).at[0].set(1.0), fixed_pnt=jnp.zeros((n_pts,)),
+    ), bad
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_local_ba_matches_reference(seed):
+    jprob, bad = huber_outlier_problem(seed)
+    jp, jc = jba.local_ba(jprob, cg_iters=30)
+    tp, tc = ba.local_ba(ba.ba_problem_from_numpy(jprob), cg_iters=30)
+    valid = tp.valid.numpy()
+    np.testing.assert_array_equal(valid, np.asarray(jp.valid))
+    # the purge took most of the corrupted edges and few of the others
+    assert valid[bad].mean() < 0.1 and valid[~bad].mean() > 0.9
+    np.testing.assert_allclose(tp.poses.numpy(), np.asarray(jp.poses), atol=1e-4)
+    assert abs(float(tc) - float(jc)) <= 1e-3 * float(jc)

@@ -16,6 +16,9 @@ and its counterpart. Tolerances (float32 on both sides, different op order):
   within 1e-3; ``optimize_sim3`` 1e-3; ``epnp_pose`` 1e-3;
 - ``optimize_pose_graph`` on the drifted circle of
   ``tests/test_solvers.py``: poses within 1e-3, final cost within 1%;
+- ``optimize_pose_graph_dense`` on ``tests/test_solvers.py``'s noisy chain
+  with chords (drawn from a numpy seed): poses within 1e-4 of the
+  reference's dense solver and within 5e-3 of the port's matrix-free one;
 - ``train``: by property (every descriptor's word is its nearest leaf among
   its parent's children; retrieval separates two scenes), not by parity: the
   two packages draw their seeds from different generators.
@@ -607,3 +610,30 @@ def test_pose_graph_zero_residual_is_a_fixed_point():
     got = pose_graph.optimize_pose_graph(T(S), T(ei_p), T(ej_p), T(meas_p), T(w_p), T(fixed),
                                          iters=5)
     np.testing.assert_allclose(N(got), S, atol=2e-3)
+
+
+def test_optimize_pose_graph_dense_matches_reference():
+    """``tests/test_solvers.py::test_pose_graph_matrix_free_matches_dense``'s
+    graph: a chain of 10 Sim3 poses with three chords, a noisy start and
+    the first pose held."""
+    rng = np.random.RandomState(3)
+    n = 10
+    S_true = np.array(jlie.sim3_exp(J(rng.randn(n, 7).astype(np.float32) * 0.4)))
+    ei = np.asarray(list(range(n - 1)) + [0, 2, 4], np.int32)
+    ej = np.asarray(list(range(1, n)) + [5, 7, 9], np.int32)
+    meas = np.array(jax.vmap(lambda i, j: jlie.sim3_compose(
+        J(S_true)[j], jlie.sim3_inverse(J(S_true)[i])))(J(ei), J(ej)))
+    S0 = np.array(jax.vmap(jlie.sim3_retract)(
+        J(S_true), J(rng.randn(n, 7).astype(np.float32) * 0.1)))
+    S0[0] = S_true[0]
+    w = np.ones(len(ei), np.float32)
+    fixed = np.zeros(n, np.float32)
+    fixed[0] = 1.0
+    ref = jpg.optimize_pose_graph_dense(J(S0), J(ei), J(ej), J(meas), J(w), J(fixed), iters=15)
+    got = pose_graph.optimize_pose_graph_dense(T(S0), T(ei), T(ej), T(meas), T(w), T(fixed),
+                                               iters=15)
+    cg = pose_graph.optimize_pose_graph(T(S0), T(ei), T(ej), T(meas), T(w), T(fixed), iters=15)
+    np.testing.assert_allclose(N(got), np.asarray(ref), atol=1e-4)
+    np.testing.assert_allclose(N(got), N(cg), atol=5e-3)
+    np.testing.assert_allclose(N(got), S_true, atol=5e-3)   # the graph's truth
+

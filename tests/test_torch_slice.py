@@ -228,9 +228,12 @@ def test_port_imports_without_jax():
         "from orbslam2_with_quadrics_tpu_torch.models import system, tracking, local_mapping\n"
         "from orbslam2_with_quadrics_tpu_torch.models import frontend, map_state\n"
         "from orbslam2_with_quadrics_tpu_torch.ops import stereo, camera, cuda_kernels\n"
+        "from orbslam2_with_quadrics_tpu_torch.ops import ba, pose_graph\n"
         "from orbslam2_with_quadrics_tpu_torch.utils import synthetic, metrics\n"
         "assert system.System.track_stereo and system.System.track_rgbd\n"
         "assert frontend.extract_stereo and map_state.grow_map and stereo.stereo_match\n"
+        "assert map_state.update_point_stats_local and local_mapping.on_accelerator\n"
+        "assert ba.local_ba and pose_graph.optimize_pose_graph_dense\n"
         "assert not any(m == 'orbslam2_with_quadrics_tpu' or m.startswith("
         "'orbslam2_with_quadrics_tpu.') for m in sys.modules)\n"
         "print('ok')\n"
