@@ -4,10 +4,18 @@
 
 Phases (any failure exits non-zero before the result line):
   1. torch version, device name, card name and power limit (nvidia-smi);
-  2. build the CUDA kernel(s) from ``orbslam2_with_quadrics_tpu_torch/csrc``;
-  3. each kernel against its plain PyTorch version on the card, bit-exact,
-     at the main path's shapes (single and batched) plus tie / all-masked /
-     ragged cases, and at those shapes four times of it:
+  2. build the three CUDA kernels from ``orbslam2_with_quadrics_tpu_torch/csrc``
+     (``masked_hamming_best2``, ``pose_lm``, ``orb_detect``), one ``nvcc``
+     per source, started together;
+  3. each kernel against its plain PyTorch version on the card at the main
+     path's shapes: the Hamming kernel bit-exact (single and batched, tie /
+     all-masked / ragged cases); ``pose_lm`` at stage A's 2 x 3 and stage
+     B's 4 x 5 schedules, 1024 mono and 2048 stereo rows, 0-2 valid rows
+     and points behind the camera (the pose within 1e-4, masks equal but for
+     rows within 1e-3 of their gate; fewer than 3 valid rows within 1e-3
+     and 1e-2 px on their reprojections); ``orb_detect`` bit-exact at
+     480x640 / 8 levels and 1226x370, rendered and tie-heavy; and at the
+     timed shapes four times of each:
        kernel_ms  device time of the kernel alone (20 launches captured in a
                   CUDA graph, the replay timed between two events, / 20);
        call_ms    what a caller pays per call on an idle card, the Python
@@ -24,9 +32,10 @@ Phases (any failure exits non-zero before the result line):
      the quadric path, ``quadric_ba_solve`` at its edge count, timed;
   5. the port's paths through ``System``, every map tensor on the card, each
      over a synthetic sequence, checked against ground truth, with the
-     kernel's launch counts from that run alone (more than 0, at most 2 per
-     tracked frame, 2 per mapping pass and 1 per mutual match, loop-point
-     projection and loop fuse):
+     kernels' launch counts from that run alone (the Hamming kernel more
+     than 0, at most 2 per tracked frame, 2 per mapping pass and 1 per
+     mutual match, loop-point projection and loop fuse; ``pose_lm`` exactly
+     2 per tracked frame; ``orb_detect`` exactly 1 per image):
        resume    (run first, so that its warmup pays the process's first-use
                  costs) the mono path with ``System.warmup()`` before frame 0,
                  then at frame 30 ``save_system``, a fresh System and
@@ -121,8 +130,18 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-KERNEL_SOURCE = "orbslam2_with_quadrics_tpu_torch/csrc/masked_hamming_best2.cu"
-KERNEL_REPLACES = "orbslam2_with_quadrics_tpu/ops/pallas_kernels.py:115"
+# each kernel of the main path: its source, and the reference function it
+# replaces (the one Pallas kernel, and the two jitted loops of the frame)
+KERNEL_SOURCE = {
+    "masked_hamming_best2": "orbslam2_with_quadrics_tpu_torch/csrc/masked_hamming_best2.cu",
+    "pose_lm": "orbslam2_with_quadrics_tpu_torch/csrc/pose_lm.cu",
+    "orb_detect": "orbslam2_with_quadrics_tpu_torch/csrc/orb_detect.cu",
+}
+KERNEL_REPLACES = {
+    "masked_hamming_best2": "orbslam2_with_quadrics_tpu/ops/pallas_kernels.py:115",
+    "pose_lm": "orbslam2_with_quadrics_tpu/ops/pose_opt.py:227",
+    "orb_detect": "orbslam2_with_quadrics_tpu/ops/orb.py:176",
+}
 KITTI = (1226.0, 370.0)
 
 
@@ -308,12 +327,13 @@ def phase_kernels(smi):
     from orbslam2_with_quadrics_tpu_torch.ops import cuda_kernels as ck
 
     t0 = time.time()
-    lib = ck.build()
+    libs = ck.build_all()  # one nvcc per source, all started together
     ck._launcher()
-    log(f"[build] {lib.name} in {time.time() - t0:.2f} s")
-    for line in open(f"{lib}.ptxas.txt").read().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] ptxas: {line.strip()}")
+    log(f"[build] {', '.join(p.name for p in libs.values())} in {time.time() - t0:.2f} s")
+    for name, lib in libs.items():
+        for line in open(f"{lib}.ptxas.txt").read().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] ptxas {name}: {line.strip()}")
     max_err = 0
     times = {}
     cases = kernel_cases()
@@ -380,6 +400,287 @@ def phase_kernels(smi):
     log(f"[kernel] main-B 4096x1024: torch.profiler by kernel name "
         f"{'no device events' if prof is None else f'{prof:.5f} ms per launch'} ({smi})")
     return max_err, times
+
+
+# instructions of pose_lm's work, an FMA counted as one (at FP32_OPS_PER_S)
+# and the known zeros of d(pred)/d(pc) and of the Jacobian left out. One LM
+# evaluation of one row in the round's inlier mask:
+LM_EVAL_MONO = (
+    18      # camera point R p + t (9 FMA), depth clamp (2), 1/z (1), u, v (4), residuals (2)
+    + 5     # chi2: e_u^2 + e_v^2 (2), its weight (1), the z > 0.05 gate (2)
+    + 7     # d(u, v)/d(camera point): 1/z^2, fx/z, fy/z (3), -fx x/z^2, -fy y/z^2 (4)
+    + 2 * 4   # the 3 rotation entries of each Jacobian row (its translation entries are
+              # sign flips of d(pred)/d(pc))
+    + 2 * 25  # each row's 5 nonzero entries times the weight (5), H's 15 nonzero upper-
+              # triangle products (15 FMA), b's 5 (5 FMA)
+    + 1)    # the cost
+LM_EVAL_STEREO = LM_EVAL_MONO + (
+    2       # u_r (1 FMA), its residual (1)
+    + 1     # e_r^2 into chi2 (1 FMA)
+    + 1     # d(u_r)/dz
+    + 4 + 25)  # the u_r Jacobian row and its products
+LM_HUBER = 8  # rounds 0-1: compare, clamp, divide, square root, weight product,
+              # rho = 2 sqrt(d2 chi2) - d2 (product, square root, FMA)
+# one chi2 re-classification of one valid row: projection and residuals, chi2
+# and its weight as above, the row's gate (select, compare, and with valid)
+LM_CHI2_MONO = 18 + 5 + 3
+LM_CHI2_STEREO = LM_CHI2_MONO + 2 + 1
+# (the 6x6 Cholesky, solves and retract, ~300 instructions per step on one
+# thread, are under 0.1% of the total at N = 1024 and left out)
+# operations of one pixel in orb_detect, as the plain version formulates
+# them: 16 subtractions and 16 bf16 roundings, the window min and max by
+# doubling (2 x 64), the 33-way max, 8 NMS and 4 border compares, the
+# threshold compare and select
+DETECT_OPS_PER_PIXEL = 210
+
+
+def lm_case(n, seed, stereo=0.0, extent=(640.0, 480.0), fx=520.0, bf=40.0, n_valid=None,
+            behind=0.0, weight=None, dev="cuda"):
+    """Inputs of pose_optimization with n rows, drawn from ``seed``: points
+    2-12 m ahead over the image, ~1 px noise, 10% of the rows 30 px off,
+    levels 0-7, 90% valid, the start 1 cm / 0.6 degree off the truth;
+    ``stereo`` of the rows measure u_r (bf > 0), ``n_valid`` keeps that many
+    valid rows, ``behind`` puts that share of the points at camera depth
+    -0.5..0.05 at the start, ``weight`` replaces the first valid row's
+    inverse sigma^2 (a negative one makes the damped systems indefinite)."""
+    rng = np.random.RandomState(seed)
+    w, h = extent
+    K = np.array([fx, fx, w / 2, h / 2], np.float64)
+    z = rng.uniform(2.0, 12.0, n)
+    z[: int(behind * n)] = rng.uniform(-0.5, 0.05, int(behind * n))
+    u, v = rng.uniform(0, w, n), rng.uniform(0, h, n)
+    pc = np.stack([(u - K[2]) / fx * z, (v - K[3]) / fx * z, z], 1)
+    a = np.array([0.01, -0.02, 0.015])
+    th = np.linalg.norm(a)
+    W = np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]]) / th
+    R = np.eye(3) + np.sin(th) * W + (1 - np.cos(th)) * W @ W
+    t = np.array([0.05, -0.02, 0.1])
+    pw = (pc - t) @ R  # R^T (pc - t), row-wise
+    obs = np.stack([u, v, u - bf / z], 1) + rng.randn(n, 3)
+    obs[: n // 10] += rng.randn(n // 10, 3) * 30.0
+    is_st = (rng.rand(n) < stereo).astype(np.float32)
+    obs[:, 2] *= is_st
+    inv_s2 = (1.0 / 1.44 ** rng.randint(0, 8, n)).astype(np.float32)
+    valid = (rng.rand(n) < 0.9).astype(np.float32)
+    if n_valid is not None:
+        valid[:] = 0.0
+        valid[n // 10: n // 10 + n_valid] = 1.0
+    if weight is not None:
+        inv_s2[np.flatnonzero(valid)[0]] = weight
+    d = np.array([0.006, 0.004, -0.008])
+    thd = np.linalg.norm(d)
+    Wd = np.array([[0, -d[2], d[1]], [d[2], 0, -d[0]], [-d[1], d[0], 0]]) / thd
+    R0 = (np.eye(3) + np.sin(thd) * Wd + (1 - np.cos(thd)) * Wd @ Wd) @ R
+    qw = np.sqrt(1.0 + np.trace(R0)) / 2.0
+    q = [qw, (R0[2, 1] - R0[1, 2]) / (4 * qw), (R0[0, 2] - R0[2, 0]) / (4 * qw),
+         (R0[1, 0] - R0[0, 1]) / (4 * qw)]
+    T0 = np.concatenate([q, t + [0.01, -0.01, 0.01]])
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)  # noqa: E731
+    return (f(T0), f(K), bf if stereo > 0 else 0.0, f(pw), f(obs), f(is_st), f(inv_s2),
+            f(valid))
+
+
+def lm_instructions(args, rounds: int, iters: int) -> int:
+    """pose_lm's work on these inputs in instructions: every evaluation of
+    every row in its round's inlier mask (the masks this run's data gives,
+    read from the plain version's rounds) and every chi2 pass over the
+    valid rows."""
+    from orbslam2_with_quadrics_tpu_torch.ops import pose_opt
+
+    masks, orig = [], pose_opt._lm_round
+
+    def spy(R, t, K, bf, points, obs, row_w, w_obs, *rest):
+        masks.append(w_obs > 0)
+        return orig(R, t, K, bf, points, obs, row_w, w_obs, *rest)
+
+    pose_opt._lm_round = spy
+    try:
+        pose_opt.pose_optimization_plain(*args, rounds=rounds, iters=iters)
+    finally:
+        pose_opt._lm_round = orig
+    st, valid = args[5] > 0, args[7] > 0
+    total = 0
+    for r, m in enumerate(masks):
+        n_st, n_mono = int((m & st).sum()), int((m & ~st).sum())
+        huber = LM_HUBER if r < 2 else 0
+        total += (iters + 1) * (n_mono * (LM_EVAL_MONO + huber)
+                                + n_st * (LM_EVAL_STEREO + huber))
+    total += rounds * (int((valid & ~st).sum()) * LM_CHI2_MONO
+                       + int((valid & st).sum()) * LM_CHI2_STEREO)
+    return total
+
+
+def lm_near_gate(T, args):
+    """Rows whose chi2 at pose T lies within 1e-3 relative of their gate."""
+    from orbslam2_with_quadrics_tpu_torch.ops import lie, pose_opt, residuals
+
+    _, K, bf, pts, obs, is_st, inv_s2, valid = args
+    row_w = pose_opt._row_weights(is_st)
+    chi2 = pose_opt._chi2_mat(lie.quat_to_matrix(T[:4]), T[4:7], K, bf, pts, obs, row_w,
+                              (valid > 0).to(torch.float32) * inv_s2)
+    gate = torch.where(is_st > 0, residuals.CHI2_STEREO, residuals.CHI2_MONO)
+    return torch.abs(chi2 - gate) <= 1e-3 * gate
+
+
+def lm_reproj_diff(Ta, Tb, args) -> float:
+    """Largest difference in px between the valid rows' predicted (u, v,
+    u_r) at the poses Ta and Tb."""
+    from orbslam2_with_quadrics_tpu_torch.ops import lie, pose_opt
+
+    _, K, bf, pts, *_, valid = args
+    pa, pb = (pose_opt._project_mat(lie.quat_to_matrix(T[:4]), T[4:7], K, bf, pts)[1]
+              for T in (Ta, Tb))
+    keep = valid > 0
+    return float(torch.abs(pa - pb)[keep].max()) if bool(keep.any()) else 0.0
+
+
+def quantized_frame(h, w, seed, levels=5):
+    """A blocky texture quantized to a few grey levels: ties everywhere."""
+    rng = np.random.RandomState(seed)
+    img = np.kron(rng.rand(h // 4 + 2, w // 4 + 2), np.ones((4, 4)))[:h, :w]
+    img = img + 0.3 * rng.rand(h, w)
+    return (np.round(img * (levels - 1)) * (240.0 / (levels - 1))).astype(np.float32)
+
+
+def phase_frame_kernels(smi, device="cuda"):
+    """The main path's two frame kernels against their plain versions on the
+    card: ``pose_lm`` at stage A's 2 x 3 and stage B's 4 x 5 schedules, N =
+    1024 mono and N = 2048 stereo rows, and the degenerate cases (0, 1, 2
+    valid rows; points at or behind the camera; damped systems that are
+    indefinite, whose steps both reject): the pose within 1e-4, the
+    inlier masks equal but for rows within 1e-3 of their gate, n_inliers
+    within that count; ``orb_detect`` bit-exact at 480x640 / 8 levels /
+    1,024 features and at 1226x370 / 2,048 features, on a rendered frame and
+    on a tie-heavy quantized one. Each launch adds exactly 1 to its count.
+    Timed at the main path's shapes: ``kernel_ms`` (CUDA-graph replay of 20
+    launches / 20), ``call_ms``, ``plain_ms``, ``bound_ms``. Returns
+    {kernel: (max error, {shape: times})}. A rehearsal on the CPU
+    (``device="cpu"``) holds the plain versions against themselves and
+    times nothing."""
+    from orbslam2_with_quadrics_tpu_torch.ops import cuda_kernels as ck
+    from orbslam2_with_quadrics_tpu_torch.ops import orb, pose_opt
+    from orbslam2_with_quadrics_tpu_torch.utils import synthetic
+
+    t_phase = time.time()
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    out = {}
+    # ---- pose_lm
+    lm_cases = [  # name, inputs, schedule, timed
+        ("stageA mono 1024", lm_case(1024, 200, dev=device), (2, 3), True),
+        ("stageB mono 1024", lm_case(1024, 201, dev=device), (4, 5), True),
+        ("stageA stereo 2048", lm_case(2048, 202, stereo=0.6, extent=KITTI, fx=718.0,
+                                       bf=387.0, dev=device), (2, 3), True),
+        ("stageB stereo 2048", lm_case(2048, 203, stereo=0.6, extent=KITTI, fx=718.0,
+                                       bf=387.0, dev=device), (4, 5), True),
+        ("0 valid", lm_case(1024, 204, n_valid=0, dev=device), (4, 5), False),
+        ("1 valid", lm_case(1024, 205, n_valid=1, dev=device), (4, 5), False),
+        ("2 valid", lm_case(1024, 206, n_valid=2, dev=device), (4, 5), False),
+        ("2 valid stereo", lm_case(1024, 207, n_valid=2, stereo=1.0, dev=device), (2, 3), False),
+        ("points behind 20%", lm_case(1024, 208, behind=0.2, dev=device), (4, 5), False),
+        ("indefinite (a row of weight -1)", lm_case(1024, 209, n_valid=3, weight=-1.0,
+                                                    dev=device), (2, 3), False),
+    ]
+    max_err, times = 0.0, {}
+    for name, args, (rounds, iters), timed in lm_cases:
+        n0 = ck.LAUNCHES["pose_lm"]
+        got = pose_opt.pose_optimization(*args, rounds=rounds, iters=iters)
+        ref = pose_opt.pose_optimization_plain(*args, rounds=rounds, iters=iters)
+        sync()
+        if ck.LAUNCHES["pose_lm"] != n0 + cuda:
+            raise AssertionError("pose_optimization on CUDA tensors must be one pose_lm launch")
+        err = float(torch.abs(got[0] - ref[0]).max())
+        differ = got[1] != ref[1]
+        n_diff, off_gate = int(differ.sum()), int((differ & ~lm_near_gate(ref[0], args)).sum())
+        dn = abs(int(got[2]) - int(ref[2]))
+        # fewer than 3 valid rows do not fix a pose: the free directions move
+        # only by damping and rounding, so the bar is on what the rows fix
+        # (their reprojections, 1e-2 px) with the pose within 1e-3
+        few = int((args[-1] > 0).sum()) < 3
+        tol = 1e-3 if few else 1e-4
+        px = lm_reproj_diff(got[0], ref[0], args)
+        if not few:
+            max_err = max(max_err, err)
+        log(f"[kernel] pose_lm {name} {rounds}x{iters}: max |T kernel - plain| = {err:.3g} "
+            f"(tolerance {tol:g}), valid rows' reprojections within {px:.3g} px, {n_diff} mask "
+            f"rows differ ({off_gate} away from their gate), n_inliers {int(got[2])} vs "
+            f"{int(ref[2])}")
+        if not (err <= tol and (not few or px <= 1e-2) and off_gate == 0 and dn <= n_diff):
+            raise AssertionError(f"pose_lm disagrees with its plain version on {name}")
+        if timed and cuda:
+            n = args[3].shape[0]
+            nbytes = sum(a.numel() * a.element_size() for a in args if torch.is_tensor(a))
+            nbytes += 7 * 4 + n + 4
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = lm_instructions(args, rounds, iters) / FP32_OPS_PER_S * 1e3
+            fn = lambda: pose_opt.pose_optimization(*args, rounds=rounds, iters=iters)  # noqa: E731
+            t = {"kernel_ms": graph_kernel_ms(fn), "call_ms": cuda_median_ms(fn),
+                 "plain_ms": cuda_median_ms(lambda: pose_opt.pose_optimization_plain(
+                     *args, rounds=rounds, iters=iters), reps=5, warmup=1),
+                 "bound_ms": max(t_bytes, t_ops),
+                 "bound_by": "bytes" if t_bytes > t_ops else "operations"}
+            times[name] = t
+            log(f"[kernel] pose_lm {name}: kernel_ms {t['kernel_ms']:.5f} (graph replay of 20), "
+                f"call_ms {t['call_ms']:.5f}, plain_ms {t['plain_ms']:.4f}, bound_ms "
+                f"{t['bound_ms']:.6f} by {t['bound_by']} ({smi})")
+    out["pose_lm"] = (max_err, times)
+    # ---- orb_detect
+    img_m = synthetic.planar_sequence(n_frames=1, h=480, w=640, fx=520.0, fy=520.0,
+                                      seed=3)[0][0]
+    img_s = synthetic.planar_sequence_stereo(n_frames=1, h=370, w=1226, fx=718.0, fy=718.0,
+                                             seed=5, baseline=0.2)[0][0]
+    det_cases = [  # name, image, n_features, timed
+        ("480x640 rendered", img_m, 1024, True),
+        ("480x640 quantized", quantized_frame(480, 640, 210), 1024, False),
+        ("1226x370 rendered", img_s, 2048, True),
+        ("1226x370 quantized", quantized_frame(370, 1226, 211), 2048, False),
+    ]
+    times, det_err = {}, 0.0
+    for name, img, n_feat, timed in det_cases:
+        h, w = img.shape
+        shapes = orb.pyramid_shapes(h, w, 8, 1.2)
+        pyr = orb.build_pyramid(torch.as_tensor(np.asarray(img, np.float32), device=device),
+                                shapes)
+        counts = orb.per_level_counts(n_feat, 8, 1.2)
+        n0 = ck.LAUNCHES["orb_detect"]
+        got = orb.detect_levels(pyr, counts)
+        ref = [torch.cat(parts) for parts in zip(*[
+            orb.detect_level_plain(p, c) for p, c in zip(pyr, counts)])]
+        sync()
+        if ck.LAUNCHES["orb_detect"] != n0 + cuda:
+            raise AssertionError("detect_levels on CUDA tensors must be one orb_detect launch")
+        same = all(g.dtype == r.dtype and g.shape == r.shape and torch.equal(g, r)
+                   for g, r in zip(got, ref))
+        err = max(float(torch.abs(g.double() - r.double()).max()) for g, r in zip(got, ref))
+        det_err = max(det_err, err)
+        log(f"[kernel] orb_detect {name}: bit-exact {same}, max |kernel - plain| = {err} over "
+            f"yx, score and valid (tolerance 0; all {len(ref[2])} slots, "
+            f"{int(ref[2].sum())} valid)")
+        if not same or err != 0:
+            raise AssertionError(f"orb_detect disagrees with its plain version on {name}")
+        if timed and cuda:
+            plan = orb.detect_plan(tuple(shapes), tuple(counts), 32, "cuda")
+            out_v = torch.full((8, plan.width), -float("inf"), device="cuda")
+            out_yx = torch.empty((8, plan.width, 2), dtype=torch.int32, device="cuda")
+            px = sum(a * b for a, b in shapes)
+            slots = sum(t[3] * t[2] * t[5] for t in plan.table)
+            t_bytes = (4 * px + 12 * slots) / HBM_BYTES_PER_S * 1e3
+            t_ops = DETECT_OPS_PER_PIXEL * px / FP32_OPS_PER_S * 1e3
+            t = {"kernel_ms": graph_kernel_ms(
+                     lambda: orb.orb_detect_launch(pyr, plan, 20.0, 7.0, out_v, out_yx)),
+                 "call_ms": cuda_median_ms(lambda: orb.detect_levels(pyr, counts)),
+                 "plain_ms": cuda_median_ms(lambda: [orb.detect_level_plain(p, c) for p, c in
+                                                     zip(pyr, counts)], reps=5, warmup=1),
+                 "bound_ms": max(t_bytes, t_ops),
+                 "bound_by": "bytes" if t_bytes > t_ops else "operations"}
+            times[name] = t
+            log(f"[kernel] orb_detect {name}: kernel_ms {t['kernel_ms']:.5f} (graph replay of "
+                f"20; {plan.n_cells} cells), call_ms {t['call_ms']:.5f} (the kernel and the "
+                f"levels' top-n glue), plain_ms {t['plain_ms']:.4f}, bound_ms "
+                f"{t['bound_ms']:.6f} by {t['bound_by']} ({smi})")
+    out["orb_detect"] = (det_err, times)
+    log(f"[kernel] frame kernels phase seconds {time.time() - t_phase:.1f}")
+    return out
 
 
 def wall_ms(fn, reps: int = 3) -> float:
@@ -696,16 +997,19 @@ def counted_calls(cuda: bool):
     (pipelined) or ``_insert_keyframe`` (synchronous) call, each of the
     three loop-closing searches is counted by its own function, and a
     ``match_by_projection`` call made outside all of these (by a tool) is
-    one call of its own. On the card
+    one call of its own. The frame kernels' calls: ``images`` counts each
+    ``orb.extract`` call and each ``orb.detect_level`` call (a tool's bare
+    detection), ``pose`` each ``pose_optimization`` call made outside a
+    ``track_frame`` call. On the card
     each mapping pass is timed by two CUDA events. Yields (the counts, the
     mapping passes' event pairs)."""
     from orbslam2_with_quadrics_tpu_torch.models import loop_closing as lc
     from orbslam2_with_quadrics_tpu_torch.models import system as sysm
     from orbslam2_with_quadrics_tpu_torch.models import tracking as tr
-    from orbslam2_with_quadrics_tpu_torch.ops import matching
+    from orbslam2_with_quadrics_tpu_torch.ops import matching, orb, pose_opt
 
     n_calls = {"frames": 0, "map_passes": 0, "mutual_match": 0, "loop_proj": 0,
-               "loop_fuse": 0, "match": 0}
+               "loop_fuse": 0, "match": 0, "images": 0, "pose": 0}
     map_events = []
     depth = [0]  # > 0 inside one of the counted calls
     patched = [(tr, "track_frame", "frames"), (matching, "mutual_match", "mutual_match"),
@@ -713,7 +1017,9 @@ def counted_calls(cuda: bool):
     originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patched]
     originals += [(sysm, "_insert_and_map", sysm._insert_and_map),
                   (sysm.System, "_insert_keyframe", sysm.System._insert_keyframe),
-                  (matching, "match_by_projection", matching.match_by_projection)]
+                  (matching, "match_by_projection", matching.match_by_projection),
+                  (orb, "extract", orb.extract), (orb, "detect_level", orb.detect_level),
+                  (pose_opt, "pose_optimization", pose_opt.pose_optimization)]
 
     def counted(fn, key):
         def call(*a, **k):
@@ -725,10 +1031,16 @@ def counted_calls(cuda: bool):
                 depth[0] -= 1
         return call
 
-    def bare(fn):  # a match_by_projection call of a tool, outside every counted call
+    def bare(fn, key="match"):  # a call of a tool, outside every counted call
         def call(*a, **k):
             if depth[0] == 0:
-                n_calls["match"] += 1
+                n_calls[key] += 1
+            return fn(*a, **k)
+        return call
+
+    def each(fn, key):  # every call
+        def call(*a, **k):
+            n_calls[key] += 1
             return fn(*a, **k)
         return call
 
@@ -752,6 +1064,9 @@ def counted_calls(cuda: bool):
     for mod, attr, key in patched:
         setattr(mod, attr, counted(getattr(mod, attr), key))
     matching.match_by_projection = bare(matching.match_by_projection)
+    pose_opt.pose_optimization = bare(pose_opt.pose_optimization, "pose")
+    orb.extract = each(orb.extract, "images")
+    orb.detect_level = each(orb.detect_level, "images")
     sysm._insert_and_map = timed(sysm._insert_and_map)
     sysm.System._insert_keyframe = timed(sysm.System._insert_keyframe)
     try:
@@ -761,15 +1076,31 @@ def counted_calls(cuda: bool):
             setattr(mod, attr, fn)
 
 
-def launch_checks(n: int, n_calls: dict):
-    """The per-frame launch rule for ``n`` launches of masked_hamming_best2
-    over the calls ``counted_calls`` counted: (ok, what) pairs."""
+def launch_checks(launches: dict, n_calls: dict):
+    """The launch rules for the kernels' ``launches`` over the calls
+    ``counted_calls`` counted: (ok, what) pairs. masked_hamming_best2: at
+    most 2 per tracked frame, 2 per mapping pass and 1 per loop-closing
+    search or bare match; pose_lm: exactly 2 per tracked frame and 1 per
+    bare pose_optimization call; orb_detect: exactly 1 per image. The
+    pose_lm and orb_detect rules apply where ``launches`` counts them (the
+    CPU tests pass the Hamming wrapper's calls alone)."""
+    n = launches["masked_hamming_best2"]
     most = (2 * n_calls["frames"] + 2 * n_calls["map_passes"] + n_calls["mutual_match"]
             + n_calls["loop_proj"] + n_calls["loop_fuse"] + n_calls["match"])
-    return [(n > 0, "masked_hamming_best2 launched by the path"),
-            (n <= most, f"at most 2 launches per tracked frame, 2 per mapping pass "
-                        f"and 1 per mutual match, loop projection, loop fuse and bare "
-                        f"match_by_projection call ({n} launches, limit {most})")]
+    checks = [(n > 0, "masked_hamming_best2 launched by the path"),
+              (n <= most, f"at most 2 launches per tracked frame, 2 per mapping pass "
+                          f"and 1 per mutual match, loop projection, loop fuse and bare "
+                          f"match_by_projection call ({n} launches, limit {most})")]
+    if "pose_lm" in launches:
+        n_lm, want_lm = launches["pose_lm"], 2 * n_calls["frames"] + n_calls["pose"]
+        n_det, want_det = launches["orb_detect"], n_calls["images"]
+        checks += [
+            (n_lm > 0 and n_lm == want_lm,
+             f"pose_lm: 2 launches per tracked frame + 1 per bare pose_optimization call "
+             f"({n_lm} launches, {want_lm} expected)"),
+            (n_det > 0 and n_det == want_det,
+             f"orb_detect: 1 launch per image ({n_det} launches, {want_det} images)")]
+    return checks
 
 
 def run_main_path(name="mono", device="cuda", sync=False, log_every=5, rendered=None,
@@ -1008,7 +1339,11 @@ def run_main_path(name="mono", device="cuda", sync=False, log_every=5, rendered=
             (slam.loop_closer.sparse, "the sparse database path"),
         ]
     if cuda:
-        checks += launch_checks(launches["masked_hamming_best2"], n_calls)
+        checks += launch_checks(launches, n_calls)
+        per_call = 2 if cfg.sensor == "stereo" else 1
+        checks.append((n_calls["images"] == per_call * len(all_ms),
+                       f"{per_call} image(s) per track call ({n_calls['images']} images over "
+                       f"{len(all_ms)} calls)"))
         if bar["loop"]:
             closures = n_calls["loop_fuse"]
             checks.append((n_calls["mutual_match"] >= closures >= 1
@@ -1240,7 +1575,8 @@ def phase_drivers(smi, written, out_dir, device="cuda"):
             res = mod.main(settings, seq, *extra, traj, device=device)
             if cuda:
                 torch.cuda.synchronize()
-            n = ck.LAUNCHES["masked_hamming_best2"]
+            launches = dict(ck.LAUNCHES)
+        n = launches["masked_hamming_best2"]
         slam = res.pop("system")
         map_ms = [a.elapsed_time(b) for a, b in map_events]
         frame_ms = 1e3 * np.asarray(res["times"])
@@ -1254,7 +1590,7 @@ def phase_drivers(smi, written, out_dir, device="cuda"):
             "frame_ms_p90": float(np.percentile(frame_ms, 90)),
             "map_ms_median": _median(map_ms), "n_map_passes": n_calls["map_passes"],
             "n_frame_steps": n_calls["frames"], "n_calls": dict(n_calls),
-            "launches": {"masked_hamming_best2": n}, "n_kf": res["n_kf"],
+            "launches": launches, "n_kf": res["n_kf"],
             "kfs_created": res["kfs_created"], "n_loops_closed": res["n_loops_closed"],
             "pools": [slam.map.kf_valid.shape[0], slam.map.pt_pos.shape[0]],
             "trajectory_rows": rows, "ate": ate, "span": span, "ate_frac": ate / span,
@@ -1272,7 +1608,7 @@ def phase_drivers(smi, written, out_dir, device="cuda"):
         log(f"[drivers] {name} {json.dumps(rec)}")
         checks = [(rows > 0, "a trajectory file that reads back")]
         if cuda:
-            checks += launch_checks(n, n_calls)
+            checks += launch_checks(launches, n_calls)
         if with_scale is not None:
             checks.append((ate < 0.05 * span, f"ATE {ate:.5f} < 5% of the span {span:.5f}"))
         for ok, what in checks:
@@ -1355,9 +1691,9 @@ def phase_tools(smi, out_dir, device="cuda"):
             ck.reset_launch_counts()
             res = fn()
             sync()
-            n = ck.LAUNCHES["masked_hamming_best2"]
+            n = dict(ck.LAUNCHES)
         launches[f"tool:{name}"] = n
-        log(f"[tools] {name}: {n} kernel launches over {json.dumps(n_calls)}")
+        log(f"[tools] {name}: kernel launches {json.dumps(n)} over {json.dumps(n_calls)}")
         if cuda:
             for ok, what in launch_checks(n, n_calls):
                 require(ok, f"{name}: {what}")
@@ -1451,12 +1787,12 @@ def phase_bench(smi, device="cuda"):
             ck.reset_launch_counts()
             out = bench.main(device, BENCH_FRAMES, wl, reps=1)
             sync()
-            n = ck.LAUNCHES["masked_hamming_best2"]
+            n = dict(ck.LAUNCHES)
     log(f"[bench] value {out['value']:.3f} frames/s, fps_amortized "
         f"{out['fps_amortized']:.3f}, frame p50 / p90 {out['frame_ms']['p50']:.2f} / "
         f"{out['frame_ms']['p90']:.2f} ms, map_pipeline_fused "
         f"{out['stage_ms']['map_pipeline_fused']:.2f} ms ({smi}; its JSON line above)")
-    log(f"[bench] {n} kernel launches over {json.dumps(n_calls)}")
+    log(f"[bench] kernel launches {json.dumps(n)} over {json.dumps(n_calls)}")
     stages = {k: v for k, v in out["stage_ms"].items() if k != "note"}
     for k, v in list(stages.items()) + [("value", out["value"])]:
         require(np.isfinite(v) and v > 0, f"{k} = {v}")
@@ -1748,6 +2084,7 @@ def main() -> int:
         orbit = pool.submit(render_sequence, **render_args("loop"))
         datasets = pool.submit(write_driver_sequences, os.path.join(tmp, "datasets"))
         max_err, times = phase_kernels(smi)
+        frame_kernels = phase_frame_kernels(smi)
         # first on the card after the kernels: warmup() pays the first-use costs
         runs = [run_main_path("resume")]
         phase_solvers(smi)
@@ -1763,14 +2100,14 @@ def main() -> int:
         _, bench_launches = phase_bench(smi)
     dist_out = phase_dist(smi)
     log(f"[dist] {json.dumps(dist_out)}")
-    by_path = {}
+    by_path = {}  # path -> {kernel: launches}
     for res in runs:
-        n = res["launches"]["masked_hamming_best2"]
-        by_path[res["path"]] = n
+        by_path[res["path"]] = {k: res["launches"][k] for k in KERNEL_SOURCE}
+        n = res["launches"]
         log(f"[{res['path']}] median frame {res['frame_ms_median']:.2f} ms, median mapping "
-            f"pass {res['map_ms_median']:.2f} ms; {n} kernel launches over "
-            f"{res['n_frame_steps']} tracked frames and {res['n_map_passes']} mapping "
-            f"passes ({smi})")
+            f"pass {res['map_ms_median']:.2f} ms; kernel launches {json.dumps(n)} over "
+            f"{res['n_frame_steps']} tracked frames, {res['n_calls']['images']} images and "
+            f"{res['n_map_passes']} mapping passes ({smi})")
         if "quadric" in res:
             q = res["quadric"]
             log(f"[{res['path']}] {q['landmarks']} landmarks, {q['initialized']} initialized, "
@@ -1779,20 +2116,34 @@ def main() -> int:
                 f"{[round(x, 2) for x in q['quadric_init_ms']]}; median IoU {q['iou_median']} "
                 f"over {q['iou_n']} keyframes ({smi})")
         log(smi)
-    by_path.update(tool_launches)
-    by_path.update(bench_launches)
+    for tag, n in list(tool_launches.items()) + list(bench_launches.items()):
+        by_path[tag] = {k: n[k] for k in KERNEL_SOURCE}
     mono = next(r for r in runs if r["path"] == "mono")
-    per_frame = ((by_path["mono"] - 2 * mono["n_map_passes"])
-                 / max(mono["n_frame_steps"], 1))
-    t = times["main-B 4096x1024"]  # the headline shape: local-map tracking
-    print(json.dumps({"kernels": [{
-        "name": "masked_hamming_best2", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": sum(by_path.values()),
-        "launches_by_path": by_path, "launches_per_frame": per_frame,
-        "max_abs_err": max_err, "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
-        "call_ms": t["call_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": None, "shapes": times,
-    }]}), flush=True)
+    headline = {"masked_hamming_best2": "main-B 4096x1024",  # local-map tracking
+                "pose_lm": "stageB mono 1024", "orb_detect": "480x640 rendered"}
+    errors = {"masked_hamming_best2": max_err, "pose_lm": frame_kernels["pose_lm"][0],
+              "orb_detect": frame_kernels["orb_detect"][0]}
+    shapes = {"masked_hamming_best2": times, "pose_lm": frame_kernels["pose_lm"][1],
+              "orb_detect": frame_kernels["orb_detect"][1]}
+    per_frame = {  # on the mono path, per tracked frame (the hamming kernel's
+        # mapping-pass launches taken out) and per image
+        "masked_hamming_best2": (by_path["mono"]["masked_hamming_best2"]
+                                 - 2 * mono["n_map_passes"]) / max(mono["n_frame_steps"], 1),
+        "pose_lm": by_path["mono"]["pose_lm"] / max(mono["n_frame_steps"], 1),
+        "orb_detect": by_path["mono"]["orb_detect"] / max(mono["n_calls"]["images"], 1)}
+    kernels = []
+    for kname in KERNEL_SOURCE:
+        t = shapes[kname][headline[kname]]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": KERNEL_SOURCE[kname],
+            "replaces": KERNEL_REPLACES[kname],
+            "launches": sum(p[kname] for p in by_path.values()),
+            "launches_by_path": {p: v[kname] for p, v in by_path.items()},
+            "launches_per_frame": per_frame[kname], "max_abs_err": errors[kname],
+            "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"], "call_ms": t["call_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "shapes": shapes[kname]})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -254,7 +254,7 @@ class System:
         """Run once, on dummy inputs against the current pool shapes, every
         stage the steady state can dispatch, and discard the results: on
         the card this pays the first-use costs before the first frame (the
-        kernel's ``nvcc`` build, the first forward-mode call, the first
+        kernels' ``nvcc`` builds, the first forward-mode call, the first
         cuSOLVER and cuBLAS calls), as the original system loads its
         vocabulary before tracking starts. The System is left as it was
         found: nothing here writes an attribute, a database row, a cache or
@@ -275,7 +275,7 @@ class System:
         if dev.type == "cuda":
             from ..ops import cuda_kernels
 
-            cuda_kernels.build()
+            cuda_kernels.build_all()
             log("kernel build")
         # the pipelined frame: a pinned upload, the step, a pinned read-back
         zimg = self._upload(np.zeros((fcfg.height, fcfg.width), np.uint8))

@@ -1,21 +1,32 @@
-"""Hand-written CUDA kernels of the port, with their plain PyTorch versions.
+"""Hand-written CUDA kernels of the port: their build, their launch counts
+and the masked-Hamming kernel's wrapper with its plain PyTorch version.
 
-Counterpart of the reference's ``ops/pallas_kernels.py``. One kernel:
+Counterpart of the reference's ``ops/pallas_kernels.py``. Each source
+``csrc/<name>.cu`` is its own library with a plain C entry point:
 
-``masked_hamming_best2`` — masked Hamming best/second-best, over one
-problem or a batch of them in one launch
-(``csrc/masked_hamming_best2.cu``), replacing the TPU Pallas kernel
-``pallas_kernels.py::_kernel``. Its contract is the reference's
-``best_two(where(mask, hamming_matrix, _BIG))``.
+- ``masked_hamming_best2`` — masked Hamming best/second-best, over one
+  problem or a batch of them in one launch, replacing the TPU Pallas kernel
+  ``pallas_kernels.py::_kernel``; its contract is the reference's
+  ``best_two(where(mask, hamming_matrix, _BIG))``. Wrapper below.
+- ``pose_lm`` — the whole motion-only LM of one pose in one launch, the
+  counterpart of the reference's jitted ``pose_opt.pose_optimization``.
+  Wrapper in ``ops/pose_opt.py``.
+- ``orb_detect`` — FAST score, 3x3 NMS, border, cell fallback and per-cell
+  top-k for every pyramid level of one image in one launch, the counterpart
+  of the reference's XLA-fused ``orb.detect_level``. Wrapper in
+  ``ops/orb.py``.
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises. The kernel is compiled at first use by ``nvcc`` for ``sm_90a`` into
-``build/torch_kernels/`` (a plain C entry point loaded with ``ctypes``).
-``LAUNCHES`` counts kernel launches per kernel name.
+A CPU tensor takes a kernel's plain version; a CUDA tensor launches the
+kernel or raises. Each source is compiled at first use by ``nvcc`` for
+``sm_90a`` into ``build/torch_kernels/`` (cached by the hash of the source
+and its flags) and loaded with ``ctypes``. ``LAUNCHES`` counts kernel
+launches per kernel name; a wrapper adds one where it launches and nowhere
+else.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import ctypes
 import functools
@@ -30,7 +41,7 @@ import torch
 
 _BIG = 1 << 20
 _PKG = Path(__file__).resolve().parents[1]
-_SRC = _PKG / "csrc" / "masked_hamming_best2.cu"
+_CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 # limits of the kernel: the packed (distance, index) key keeps 22 index
 # bits, the batch is the grid's y extent, a block takes 1..64 queries
@@ -38,7 +49,12 @@ _MAX_TARGETS = 1 << 22
 _MAX_BATCH = 65535
 _MAX_Q_PER_BLOCK = 64
 
-LAUNCHES = {"masked_hamming_best2": 0}
+# extra nvcc flags per source: the LM kernel keeps each multiply and add
+# rounded on its own, as the plain version's elementwise ops round them
+_FLAGS = {"masked_hamming_best2": (), "pose_lm": ("-fmad=false",), "orb_detect": ()}
+KERNELS = tuple(_FLAGS)
+
+LAUNCHES = {name: 0 for name in KERNELS}
 
 
 def reset_launch_counts():
@@ -53,35 +69,60 @@ def _nvcc() -> str:
     return path
 
 
-def build() -> Path:
-    """Compile the kernel source to a shared library (cached by its hash).
-    ptxas' resource report (registers, shared memory, spills) is kept
-    beside it as ``<library>.ptxas.txt``."""
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"{_SRC.stem}_{digest}.so"
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` to a shared library (cached by the hash of
+    the source and its flags). ptxas' resource report (registers, shared
+    memory, spills) is kept beside it as ``<library>.ptxas.txt``."""
+    src = _CSRC / f"{name}.cu"
+    flags = list(_FLAGS[name])
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"{name}_{digest}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, str(_SRC)]
+           "-O3", *flags, "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", tmp,
+           str(src)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        raise RuntimeError(f"nvcc failed on {src.name} ({res.returncode}):\n{res.stderr}")
     Path(f"{out}.ptxas.txt").write_text(res.stderr)
     os.replace(tmp, out)
     return out
 
 
+def build_all() -> dict:
+    """Every kernel's library, the ``nvcc`` runs started together (one
+    process per source). Returns {name: library path}."""
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        return dict(zip(KERNELS, pool.map(build, KERNELS)))
+
+
+@functools.lru_cache(maxsize=None)
+def library(name: str) -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu``, loaded once."""
+    return ctypes.CDLL(str(build(name)))
+
+
 @functools.lru_cache(maxsize=1)
 def _launcher():
-    """The library's C entry point, built, loaded and typed once."""
-    fn = ctypes.CDLL(str(build())).masked_hamming_best2_launch
+    """The masked-Hamming C entry point, built, loaded and typed once."""
+    fn = library("masked_hamming_best2").masked_hamming_best2_launch
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
     return fn
+
+
+def launch_device(dev: torch.device):
+    """Context that makes ``dev`` the current card for a launch (entered
+    only where it is not the current one). Returns (context, index)."""
+    current = torch.cuda.current_device()
+    index = current if dev.index is None else dev.index
+    ctx = torch.cuda.device(index) if index != current else contextlib.nullcontext()
+    return ctx, index
 
 
 @functools.lru_cache(maxsize=None)
@@ -178,8 +219,7 @@ def masked_hamming_best2(qdesc, quv, qrad, qlvl, qvalid,
     out = torch.empty((3,) + q_lead, dtype=torch.int32, device=dev)
     if B * Q == 0:
         return out.unbind(0)
-    current = torch.cuda.current_device()
-    index = current if dev.index is None else dev.index
+    ctx, index = launch_device(dev)
     if q_per_block is None:
         q_per_block = _q_per_block(B * Q, _sm_count(index))
     elif not 1 <= q_per_block <= _MAX_Q_PER_BLOCK:
@@ -187,7 +227,7 @@ def masked_hamming_best2(qdesc, quv, qrad, qlvl, qvalid,
     o = out.data_ptr()
     # the launch goes to the tensors' card; switching is paid only when that
     # is not the current one
-    with torch.cuda.device(index) if index != current else contextlib.nullcontext():
+    with ctx:
         err = _launcher()(
             *ptrs, B, Q, N, int(len(t_lead) == 2), q_per_block, int(level_tol),
             o, o + 4 * B * Q, o + 8 * B * Q, torch.cuda.current_stream(index).cuda_stream,

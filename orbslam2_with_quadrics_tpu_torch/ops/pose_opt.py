@@ -7,27 +7,46 @@ points, chi-square inlier re-classification between rounds (5.991 mono /
 is carried as (R [3,3], t [3]); each LM step evaluates (H, b, cost) at the
 candidate in one pass with deferred accept/reject. Every accept/reject is a
 ``torch.where`` on the device, so the solve never waits for the host.
+
+On a CUDA tensor the whole solve is one launch of the hand-written kernel
+``csrc/pose_lm.cu`` (:func:`pose_optimization`); a CPU tensor takes the
+plain PyTorch version (:func:`pose_optimization_plain`), ~100 small ops per
+LM step. The kernel replaces the reference's jitted ``fori_loop`` solve
+(``orbslam2_with_quadrics_tpu/ops/pose_opt.py:190-280``). What bounds it
+on the card is latency, not bytes or FLOPs: the schedule is a chain of
+2 * rounds * (iters + 1) + rounds dependent block-wide reductions (30 at
+4 x 5), each followed by a serial 6x6 solve. The kernel keeps that chain
+inside one block of 256 threads (a fixed-order shuffle-and-shared-memory
+reduction per link, thread 0 solving and retracting between barriers), so
+the host pays one launch per solve instead of ~3,000 per frame.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
-from . import lie, residuals
+from . import cuda_kernels, lie, residuals
 
 
 def solve_spd_small(H, b, eps: float = 1e-12):
     """Solve H x = b for a small SPD H (the damped 6x6 normal matrix) by
-    Cholesky; ``eps`` floors the pivots as the reference's unrolled
-    factorization does."""
+    Cholesky of H + ``eps`` I. Where a pivot is not positive the solution
+    is NaN, so the LM step that asked for it is rejected (``cholesky_ex``
+    alone leaves a partial factor that solves to some finite step). The
+    reference floors such a pivot at ``eps`` and takes the huge finite
+    step that gives; the port rejects it on purpose."""
     n = H.shape[-1]
-    L, _ = torch.linalg.cholesky_ex(
+    L, info = torch.linalg.cholesky_ex(
         H + eps * torch.eye(n, dtype=H.dtype, device=H.device)
     )
     # two triangular solves: unlike cholesky_solve / solve, nothing here
     # reads an error flag back to the host, so the LM chain never syncs
     y = torch.linalg.solve_triangular(L, b[..., None], upper=False)
-    return torch.linalg.solve_triangular(L.mT, y, upper=True)[..., 0]
+    x = torch.linalg.solve_triangular(L.mT, y, upper=True)[..., 0]
+    return torch.where((info == 0)[..., None], x, float("nan"))
 
 
 def _row_weights(is_stereo):
@@ -127,9 +146,10 @@ def _lm_round(R, t, K, bf, points, obs, row_w, w_obs, huber_delta2: float,
     return R, t
 
 
-def pose_optimization(T_init, K, bf, points_w, obs_uvr, is_stereo, inv_sigma2,
-                      valid, rounds: int = 4, iters: int = 5):
-    """Optimize one camera pose against fixed 3D points.
+def pose_optimization_plain(T_init, K, bf, points_w, obs_uvr, is_stereo, inv_sigma2,
+                            valid, rounds: int = 4, iters: int = 5):
+    """Plain PyTorch version of :func:`pose_optimization` (the CPU route,
+    and what the kernel is held against on the card).
 
     Args: T_init [7]; K [4]; bf scalar (0 for mono); points_w [N,3];
     obs_uvr [N,3]; is_stereo [N] (1.0 where u_r is measured);
@@ -152,3 +172,69 @@ def pose_optimization(T_init, K, bf, points_w, obs_uvr, is_stereo, inv_sigma2,
         inlier = (chi2_all < chi2_gate) & (valid > 0)
     T = lie.se3_make(lie.matrix_to_quat(R), t)
     return T, inlier, torch.sum(inlier.to(torch.int32))
+
+
+@functools.lru_cache(maxsize=1)
+def _launcher():
+    fn = cuda_kernels.library("pose_lm").pose_lm_launch
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_float] + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _checked(name, t, dev, shape):
+    if t.device != dev:
+        raise ValueError(f"pose_optimization: {name} on {t.device}, expected {dev}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"pose_optimization: {name} has dtype {t.dtype}, expected float32")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"pose_optimization: {name} has shape {tuple(t.shape)}, "
+                         f"expected {shape}")
+    return t.contiguous()
+
+
+def pose_optimization(T_init, K, bf, points_w, obs_uvr, is_stereo, inv_sigma2,
+                      valid, rounds: int = 4, iters: int = 5):
+    """Optimize one camera pose against fixed 3D points: ``rounds`` x
+    ``iters`` LM with chi2 re-classification between rounds.
+
+    Args: T_init [7]; K [4]; bf scalar (0 for mono; a number or a 0-dim
+    tensor); points_w [N,3]; obs_uvr [N,3]; is_stereo [N] (1.0 where u_r is
+    measured); inv_sigma2 [N]; valid [N] (1.0 real, 0.0 padding); all
+    float32. Returns (T_opt [7], inlier_mask [N] bool, n_inliers int32
+    scalar), on the inputs' device. CPU tensors take
+    :func:`pose_optimization_plain`; CUDA tensors one launch of
+    ``csrc/pose_lm.cu``."""
+    dev = points_w.device
+    if dev.type == "cpu":
+        return pose_optimization_plain(T_init, K, bf, points_w, obs_uvr, is_stereo,
+                                       inv_sigma2, valid, rounds, iters)
+    if dev.type != "cuda":
+        raise ValueError(f"pose_optimization: unsupported device {dev}")
+    n = points_w.shape[0]
+    args = [_checked(name, t, dev, shape) for name, t, shape in (
+        ("T_init", T_init, (7,)), ("K", K, (4,)), ("points_w", points_w, (n, 3)),
+        ("obs_uvr", obs_uvr, (n, 3)), ("is_stereo", is_stereo, (n,)),
+        ("inv_sigma2", inv_sigma2, (n,)), ("valid", valid, (n,)))]
+    if isinstance(bf, torch.Tensor):
+        bf_t, bf_val = _checked("bf", bf.reshape(()), dev, ()), 0.0
+    else:
+        bf_t, bf_val = None, float(bf)
+    if rounds < 0 or iters < 0:
+        raise ValueError(f"pose_optimization: rounds={rounds}, iters={iters}")
+    T_out = torch.empty(7, dtype=torch.float32, device=dev)
+    inlier = torch.empty(n, dtype=torch.bool, device=dev)
+    n_inl = torch.empty((), dtype=torch.int32, device=dev)
+    ctx, index = cuda_kernels.launch_device(dev)
+    with ctx:
+        err = _launcher()(
+            args[0].data_ptr(), args[1].data_ptr(),
+            None if bf_t is None else bf_t.data_ptr(), bf_val,
+            *(a.data_ptr() for a in args[2:]), n, int(rounds), int(iters),
+            T_out.data_ptr(), inlier.data_ptr(), n_inl.data_ptr(),
+            torch.cuda.current_stream(index).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"pose_lm launch failed: cudaError {err}")
+    cuda_kernels.LAUNCHES["pose_lm"] += 1
+    return T_out, inlier, n_inl

@@ -58,7 +58,7 @@ STAGES = [
     (sysm, "_frame_step"), (fe, "extract_stereo"), (fe, "extract_rgbd"),
     (fe, "extract_mono"), (orb, "extract"), (stereo, "stereo_match"),
     (matching, "hamming_matrix"), (orb, "build_pyramid"),
-    (orb, "detect_level"), (tr, "track_frame"), (tr, "select_local_points"),
+    (orb, "detect_levels"), (tr, "track_frame"), (tr, "select_local_points"),
     (tr, "_pose_opt_from_obs"), (matching, "match_by_projection"),
     (ck, "masked_hamming_best2"),
     (sysm, "_insert_and_map"), (sysm, "_create_depth_points"), (lm, "cull_points"),
@@ -113,17 +113,17 @@ def analyse(prof, wall_ms, n_frames):
         if e.device_type == DeviceType.CPU and e.name.startswith("S:"):
             n, d = stage_dev.get(e.name[2:], (0, 0.0))
             stage_dev[e.name[2:]] = (n + 1, d + e.device_time_total / 1e3)
-    ham = [e for e in dev if "masked_hamming_best2" in e.name]
+    kern = {k: [e for e in dev if k in e.name] for k in ck.KERNELS}
     return {
         "window_frames": n_frames, "wall_ms": wall_ms,
         "device_busy_ms": busy, "device_busy_share": busy / wall_ms,
         "device_activities": len(dev), "device_activities_per_frame": len(dev) / n_frames,
         "stage_device_ms": {k: {"calls": n, "ms_per_call": d / n}
                             for k, (n, d) in stage_dev.items()},
-        "masked_hamming_best2_kernels": {
-            "count": len(ham),
-            "ms_per_launch": (sum(e.time_range.elapsed_us() for e in ham) / 1e3 / len(ham)
-                              if ham else None)},
+        "kernels": {k: {
+            "count": len(ev),
+            "ms_per_launch": (sum(e.time_range.elapsed_us() for e in ev) / 1e3 / len(ev)
+                              if ev else None)} for k, ev in kern.items()},
     }
 
 
@@ -203,7 +203,7 @@ def main() -> int:
     print(f"[profile] frames {p0}-{p1 - 1}: wall {wall_ms:.1f} ms, device busy "
           f"{summary['device_busy_ms']:.1f} ms ({100 * summary['device_busy_share']:.1f}%), "
           f"{summary['device_activities_per_frame']:.0f} device activities per frame")
-    print(f"[profile] masked_hamming_best2 kernels: {summary['masked_hamming_best2_kernels']}")
+    print(f"[profile] hand-written kernels: {summary['kernels']}")
     print(f"{'stage':28s} {'synced calls':>12s} {'host ms':>9s} {'prof calls':>10s} "
           f"{'device ms':>9s}")
     for _, name in STAGES:

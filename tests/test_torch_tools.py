@@ -100,7 +100,7 @@ def wrapper_calls():
 
 
 def assert_launch_rule(calls, n_calls):
-    for ok, what in chip_smoke().launch_checks(calls[0], n_calls):
+    for ok, what in chip_smoke().launch_checks({"masked_hamming_best2": calls[0]}, n_calls):
         assert ok, what
 
 
