@@ -4,9 +4,9 @@
 
 Phases (any failure exits non-zero before the result line):
   1. torch version, device name, card name and power limit (nvidia-smi);
-  2. build the three CUDA kernels from ``orbslam2_with_quadrics_tpu_torch/csrc``
-     (``masked_hamming_best2``, ``pose_lm``, ``orb_detect``), one ``nvcc``
-     per source, started together;
+  2. build the five CUDA kernels from ``orbslam2_with_quadrics_tpu_torch/csrc``
+     (``masked_hamming_best2``, ``pose_lm``, ``orb_detect``, ``orb_describe``,
+     ``ba_dense_terms``), one ``nvcc`` per source, started together;
   3. each kernel against its plain PyTorch version on the card at the main
      path's shapes: the Hamming kernel bit-exact (single and batched, tie /
      all-masked / ragged cases); ``pose_lm`` at stage A's 2 x 3 and stage
@@ -14,8 +14,11 @@ Phases (any failure exits non-zero before the result line):
      and points behind the camera (the pose within 1e-4, masks equal but for
      rows within 1e-3 of their gate; fewer than 3 valid rows within 1e-3
      and 1e-2 px on their reprojections); ``orb_detect`` bit-exact at
-     480x640 / 8 levels and 1226x370, rendered and tie-heavy; and at the
-     timed shapes four times of each:
+     480x640 / 8 levels and 1226x370, rendered and tie-heavy;
+     ``orb_describe`` at the same shapes (angles within 1e-5 rad, the words
+     bit-equal wherever the angles are, at least 99.5% of the valid
+     keypoints bit-equal, every one on a one-level integer image); and at
+     the timed shapes four times of each:
        kernel_ms  device time of the kernel alone (20 launches captured in a
                   CUDA graph, the replay timed between two events, / 20);
        call_ms    what a caller pays per call on an idle card, the Python
@@ -28,14 +31,23 @@ Phases (any failure exits non-zero before the result line):
      RANSAC) on the card against the same calls on the CPU, and their times;
      after the mono path, local BA's two solvers on a window of its map
      (``ba_solve_dense``, the card's, against the PCG ``ba_solve``: poses
-     within 1e-4, costs within 1e-3 relative; both schedules timed); after
+     within 1e-4, costs within 1e-3 relative; both schedules timed) and
+     ``ba_dense_terms`` against its plain version there: at every step of
+     the 4 + 6 schedule the camera blocks, coupling and cost within 1e-5
+     relative, and the gradients and the point blocks' inverses no further
+     from a float64 evaluation than 1e-5 + 4x the plain version's own
+     distance; the schedule through the kernels against it through the
+     plain version (poses within 1e-4, cost within 1e-3 relative); the
+     terms of one LM step timed as the kernels above; after
      the quadric path, ``quadric_ba_solve`` at its edge count, timed;
   5. the port's paths through ``System``, every map tensor on the card, each
      over a synthetic sequence, checked against ground truth, with the
      kernels' launch counts from that run alone (the Hamming kernel more
      than 0, at most 2 per tracked frame, 2 per mapping pass and 1 per
      mutual match, loop-point projection and loop fuse; ``pose_lm`` exactly
-     2 per tracked frame; ``orb_detect`` exactly 1 per image):
+     2 per tracked frame; ``orb_detect`` and ``orb_describe`` exactly 1 per
+     image; ``ba_dense_terms`` exactly 3 per dense LM step and 1 per dense
+     solve, two solves per local BA, launched where a mapping pass ran):
        resume    (run first, so that its warmup pays the process's first-use
                  costs) the mono path with ``System.warmup()`` before frame 0,
                  then at frame 30 ``save_system``, a fresh System and
@@ -131,16 +143,22 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # each kernel of the main path: its source, and the reference function it
-# replaces (the one Pallas kernel, and the two jitted loops of the frame)
+# replaces (the one Pallas kernel, the two jitted loops of the frame, and
+# the two stages the reference laid out for the TPU: the descriptor stage
+# of extract and the dense-Schur local BA's step)
 KERNEL_SOURCE = {
     "masked_hamming_best2": "orbslam2_with_quadrics_tpu_torch/csrc/masked_hamming_best2.cu",
     "pose_lm": "orbslam2_with_quadrics_tpu_torch/csrc/pose_lm.cu",
     "orb_detect": "orbslam2_with_quadrics_tpu_torch/csrc/orb_detect.cu",
+    "orb_describe": "orbslam2_with_quadrics_tpu_torch/csrc/orb_describe.cu",
+    "ba_dense_terms": "orbslam2_with_quadrics_tpu_torch/csrc/ba_dense_terms.cu",
 }
 KERNEL_REPLACES = {
     "masked_hamming_best2": "orbslam2_with_quadrics_tpu/ops/pallas_kernels.py:115",
     "pose_lm": "orbslam2_with_quadrics_tpu/ops/pose_opt.py:227",
     "orb_detect": "orbslam2_with_quadrics_tpu/ops/orb.py:176",
+    "orb_describe": "orbslam2_with_quadrics_tpu/ops/orb.py:366",
+    "ba_dense_terms": "orbslam2_with_quadrics_tpu/ops/ba.py:409",
 }
 KITTI = (1226.0, 370.0)
 
@@ -432,6 +450,25 @@ LM_CHI2_STEREO = LM_CHI2_MONO + 2 + 1
 # doubling (2 x 64), the 33-way max, 8 NMS and 4 border compares, the
 # threshold compare and select
 DETECT_OPS_PER_PIXEL = 210
+# instructions of orb_describe's work for one valid keypoint, each multiply
+# and add on its own (the build's -fmad=false): the moments (a multiply and
+# an add for m01 and for m10 at each of the 709 pixels of the 31x31
+# circle), the blur (7 multiplies and 6 adds per output, 31 x 37 vertical
+# and 31 x 31 horizontal), each of the 512 taps (4 multiplies, 2 adds, 2
+# roundings, 4 clamps), the 256 compares, and about 100 for atan2, cos, sin
+DESCRIBE_OPS_PER_KP = 4 * 709 + 13 * (31 * 37 + 31 * 31) + 12 * 512 + 256 + 100
+DESCRIBE_PATCH = 37
+# instructions of one dense LM step's terms per edge with a valid
+# observation (the function's work: each quantity once, -fmad=false): the
+# residual (~40) and the Jacobians (~60), the camera blocks (Hcc's 21 upper
+# entries and Jc^T W e's 6, a product and an add for each of 3 rows, and
+# the 18 weighted entries: 180), the point blocks (Hpp's 6, bp's 3, V's 18:
+# 162 and the 9 weighted entries); the cost at the candidate (~45 per edge);
+# per observed local slot the sum and the inverse (~60), per (camera, slot)
+# pair with an edge VH's 18 products of 3 (90)
+BA_TERMS_OPS_PER_EDGE = 40 + 60 + 180 + 171
+BA_COST_OPS_PER_EDGE = 45
+BA_SLOT_OPS, BA_PAIR_OPS = 60, 90
 
 
 def lm_case(n, seed, stereo=0.0, extent=(640.0, 480.0), fx=520.0, bf=40.0, n_valid=None,
@@ -679,8 +716,123 @@ def phase_frame_kernels(smi, device="cuda"):
                 f"levels' top-n glue), plain_ms {t['plain_ms']:.4f}, bound_ms "
                 f"{t['bound_ms']:.6f} by {t['bound_by']} ({smi})")
     out["orb_detect"] = (det_err, times)
+    out["orb_describe"] = describe_checks(smi, device, img_m, img_s)
     log(f"[kernel] frame kernels phase seconds {time.time() - t_phase:.1f}")
     return out
+
+
+def describe_args(pyr, counts):
+    """``orb.describe``'s arguments from the detection of ``pyr``."""
+    from orbslam2_with_quadrics_tpu_torch.ops import orb
+
+    yx, _, valid = orb.detect_levels(pyr, counts)
+    lvl = torch.cat([torch.full((c,), l, dtype=torch.int64, device=pyr[0].device)
+                     for l, c in enumerate(counts)])
+    return yx[:, 0], yx[:, 1], lvl, valid
+
+
+def describe_angle_f64(pyr, kp_y, kp_x, lvl_ids, valid):
+    """The orientation of each keypoint from its moments summed in float64
+    (the patch cut as ``describe_plain`` cuts it): what both routes' float32
+    sums approximate."""
+    from orbslam2_with_quadrics_tpu_torch.ops import orb
+
+    h0, w0 = pyr[0].shape
+    canvas = torch.stack([torch.nn.functional.pad(p, (0, w0 - p.shape[1], 0, h0 - p.shape[0]))
+                          for p in pyr]).double()
+    # the 31x31 centre of the 37x37 patch, whose start clamps into the canvas
+    y0 = torch.clamp(torch.where(valid, kp_y, orb.EDGE_THRESHOLD) - 18, 0, h0 - 37) + 3
+    x0 = torch.clamp(torch.where(valid, kp_x, orb.EDGE_THRESHOLD) - 18, 0, w0 - 37) + 3
+    i = torch.arange(31, device=canvas.device)
+    raw = canvas[lvl_ids[:, None, None], (y0[:, None] + i)[:, :, None],
+                 (x0[:, None] + i)[:, None, :]].reshape(-1, 961)
+    m = raw @ torch.as_tensor(orb._moment_weights(), device=raw.device).double()
+    return torch.where(valid, torch.atan2(m[:, 0], m[:, 1]), 0.0)
+
+
+def describe_checks(smi, device, img_m, img_s):
+    """``orb_describe`` against ``describe_plain`` on the card: at 480x640 /
+    8 levels / 1,024 features and 1226x370 / 2,048 on the rendered frames,
+    at 480x640 on a tie-heavy quantized frame, and on a one-level integer
+    frame, where the float32 moment sums are exact. The kernel sums the
+    moments in float64: its angles within 1e-6 rad of a float64 evaluation,
+    and within 1e-5 rad of the plain version's plus the plain version's own
+    distance to that evaluation (its float32 matmul loses up to ~4e-4 rad
+    where the moments nearly cancel); the words bit-equal wherever the
+    angles are, >= 99.5% of the valid keypoints bit-equal (every one on the
+    integer frame); one launch each. Timed at the rendered shapes. Returns
+    (the largest angle difference to the plain version, {shape: times})."""
+    from orbslam2_with_quadrics_tpu_torch.ops import cuda_kernels as ck
+    from orbslam2_with_quadrics_tpu_torch.ops import orb
+
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cases = [  # name, image, levels, n_features, timed, every keypoint bit-equal
+        ("480x640 rendered", img_m, 8, 1024, True, False),
+        ("1226x370 rendered", img_s, 8, 2048, True, False),
+        ("480x640 quantized", quantized_frame(480, 640, 212), 8, 1024, False, False),
+        ("480x640 integer, one level", quantized_frame(480, 640, 213), 1, 1024, False, True),
+    ]
+    times, max_err = {}, 0.0
+    for name, img, n_levels, n_feat, timed, exact in cases:
+        h, w = img.shape
+        shapes = orb.pyramid_shapes(h, w, n_levels, 1.2)
+        pyr = orb.build_pyramid(torch.as_tensor(np.asarray(img, np.float32), device=device),
+                                shapes)
+        args = describe_args(pyr, orb.per_level_counts(n_feat, n_levels, 1.2))
+        n0 = ck.LAUNCHES["orb_describe"]
+        got = orb.describe(pyr, *args)
+        ref = orb.describe_plain(pyr, *args)
+        sync()
+        if ck.LAUNCHES["orb_describe"] != n0 + cuda:
+            raise AssertionError("describe on CUDA tensors must be one orb_describe launch")
+        valid = args[3]
+        dk = torch.abs(got[0] - ref[0])[valid]
+        err = float(dk.max())
+        max_err = max(max_err, err)
+        same = (got[1] == ref[1]).all(1)
+        share = float(same[valid].double().mean())
+        bad = int((valid & (got[0] == ref[0]) & ~same).sum())
+        zero = bool((got[1][~valid] == 0).all()) and bool((got[0][~valid] == 0).all())
+        a64 = describe_angle_f64(pyr, *args)
+        k64, p64 = (torch.abs(a.double() - a64)[valid] for a in (got[0], ref[0]))
+        beyond = int((dk > 1e-5).sum())
+        log(f"[kernel] orb_describe {name}: max |angle kernel - plain| = {err:.3g} rad, "
+            f"{beyond} keypoints past 1e-5 (each within 1e-5 + the plain version's own "
+            f"distance to a float64 evaluation: {bool((dk <= 1e-5 + p64).all())}); from the "
+            f"float64 evaluation: kernel {float(k64.max()):.3g} (tolerance 1e-6), plain "
+            f"{float(p64.max()):.3g} rad; {int(valid.sum())} valid keypoints, {share:.5f} of "
+            f"them bit-equal (at least {'1' if exact else '0.995'}), {bad} with equal angles "
+            f"and different words")
+        # (a rehearsal on the CPU holds the plain version against itself)
+        if not ((not cuda or bool((k64 <= 1e-6).all())) and bool((dk <= 1e-5 + p64).all())
+                and bad == 0
+                and zero and share >= (1.0 if exact else 0.995)):
+            raise AssertionError(f"orb_describe disagrees with its plain version on {name}")
+        if timed and cuda:
+            px = 0  # pixels the patches of the valid keypoints cover, each level once
+            h0, w0 = shapes[0]
+            for l, (hl, wl) in enumerate(shapes):
+                sel = valid & (args[2] == l)
+                cover = torch.zeros((h0, w0), dtype=torch.bool, device=device)
+                i = torch.arange(DESCRIBE_PATCH, device=device)
+                y0 = torch.clamp(args[0][sel] - 18, 0, h0 - DESCRIBE_PATCH)
+                x0 = torch.clamp(args[1][sel] - 18, 0, w0 - DESCRIBE_PATCH)
+                cover[(y0[:, None] + i)[:, :, None], (x0[:, None] + i)[:, None, :]] = True
+                px += int(cover[:hl, :wl].sum())
+            n = valid.numel()
+            t_bytes = (4 * px + 25 * n + 4 * 1024 + 36 * n) / HBM_BYTES_PER_S * 1e3
+            t_ops = DESCRIBE_OPS_PER_KP * int(valid.sum()) / FP32_OPS_PER_S * 1e3
+            t = {"kernel_ms": graph_kernel_ms(lambda: orb.describe(pyr, *args)),
+                 "call_ms": cuda_median_ms(lambda: orb.describe(pyr, *args)),
+                 "plain_ms": cuda_median_ms(lambda: orb.describe_plain(pyr, *args), reps=10),
+                 "bound_ms": max(t_bytes, t_ops),
+                 "bound_by": "bytes" if t_bytes > t_ops else "operations"}
+            times[name] = t
+            log(f"[kernel] orb_describe {name}: kernel_ms {t['kernel_ms']:.5f} (graph replay "
+                f"of 20; {n} keypoints), call_ms {t['call_ms']:.5f}, plain_ms "
+                f"{t['plain_ms']:.4f}, bound_ms {t['bound_ms']:.6f} by {t['bound_by']} ({smi})")
+    return max_err, times
 
 
 def wall_ms(fn, reps: int = 3) -> float:
@@ -1000,16 +1152,21 @@ def counted_calls(cuda: bool):
     one call of its own. The frame kernels' calls: ``images`` counts each
     ``orb.extract`` call and each ``orb.detect_level`` call (a tool's bare
     detection), ``pose`` each ``pose_optimization`` call made outside a
-    ``track_frame`` call. On the card
+    ``track_frame`` call; ``extracts`` each ``orb.extract`` call alone. The
+    dense local BA's: ``local_ba`` each ``run_local_ba`` call,
+    ``dense_solves`` each ``ba_solve_dense`` and ``dense_steps`` each
+    ``_dense_schur_step`` call. On the card
     each mapping pass is timed by two CUDA events. Yields (the counts, the
     mapping passes' event pairs)."""
+    from orbslam2_with_quadrics_tpu_torch.models import local_mapping as lm
     from orbslam2_with_quadrics_tpu_torch.models import loop_closing as lc
     from orbslam2_with_quadrics_tpu_torch.models import system as sysm
     from orbslam2_with_quadrics_tpu_torch.models import tracking as tr
-    from orbslam2_with_quadrics_tpu_torch.ops import matching, orb, pose_opt
+    from orbslam2_with_quadrics_tpu_torch.ops import ba, matching, orb, pose_opt
 
     n_calls = {"frames": 0, "map_passes": 0, "mutual_match": 0, "loop_proj": 0,
-               "loop_fuse": 0, "match": 0, "images": 0, "pose": 0}
+               "loop_fuse": 0, "match": 0, "images": 0, "pose": 0, "extracts": 0,
+               "local_ba": 0, "dense_solves": 0, "dense_steps": 0}
     map_events = []
     depth = [0]  # > 0 inside one of the counted calls
     patched = [(tr, "track_frame", "frames"), (matching, "mutual_match", "mutual_match"),
@@ -1019,7 +1176,10 @@ def counted_calls(cuda: bool):
                   (sysm.System, "_insert_keyframe", sysm.System._insert_keyframe),
                   (matching, "match_by_projection", matching.match_by_projection),
                   (orb, "extract", orb.extract), (orb, "detect_level", orb.detect_level),
-                  (pose_opt, "pose_optimization", pose_opt.pose_optimization)]
+                  (pose_opt, "pose_optimization", pose_opt.pose_optimization),
+                  (lm, "run_local_ba", lm.run_local_ba),
+                  (ba, "ba_solve_dense", ba.ba_solve_dense),
+                  (ba, "_dense_schur_step", ba._dense_schur_step)]
 
     def counted(fn, key):
         def call(*a, **k):
@@ -1038,9 +1198,10 @@ def counted_calls(cuda: bool):
             return fn(*a, **k)
         return call
 
-    def each(fn, key):  # every call
+    def each(fn, *keys):  # every call
         def call(*a, **k):
-            n_calls[key] += 1
+            for key in keys:
+                n_calls[key] += 1
             return fn(*a, **k)
         return call
 
@@ -1065,8 +1226,11 @@ def counted_calls(cuda: bool):
         setattr(mod, attr, counted(getattr(mod, attr), key))
     matching.match_by_projection = bare(matching.match_by_projection)
     pose_opt.pose_optimization = bare(pose_opt.pose_optimization, "pose")
-    orb.extract = each(orb.extract, "images")
+    orb.extract = each(orb.extract, "images", "extracts")
     orb.detect_level = each(orb.detect_level, "images")
+    lm.run_local_ba = each(lm.run_local_ba, "local_ba")
+    ba.ba_solve_dense = each(ba.ba_solve_dense, "dense_solves")
+    ba._dense_schur_step = each(ba._dense_schur_step, "dense_steps")
     sysm._insert_and_map = timed(sysm._insert_and_map)
     sysm.System._insert_keyframe = timed(sysm.System._insert_keyframe)
     try:
@@ -1081,8 +1245,13 @@ def launch_checks(launches: dict, n_calls: dict):
     ``counted_calls`` counted: (ok, what) pairs. masked_hamming_best2: at
     most 2 per tracked frame, 2 per mapping pass and 1 per loop-closing
     search or bare match; pose_lm: exactly 2 per tracked frame and 1 per
-    bare pose_optimization call; orb_detect: exactly 1 per image. The
-    pose_lm and orb_detect rules apply where ``launches`` counts them (the
+    bare pose_optimization call; orb_detect: exactly 1 per image;
+    orb_describe: exactly 1 per ``orb.extract`` call (an image);
+    ba_dense_terms: exactly 3 per dense LM step (the terms pass, the point
+    pass, the cost at the candidate) and 1 per dense solve (the cost at its
+    start), two solves per local BA (every local BA on the card takes the
+    dense schedule), and launched wherever a mapping pass ran. The frame
+    and mapping kernels' rules apply where ``launches`` counts them (the
     CPU tests pass the Hamming wrapper's calls alone)."""
     n = launches["masked_hamming_best2"]
     most = (2 * n_calls["frames"] + 2 * n_calls["map_passes"] + n_calls["mutual_match"]
@@ -1100,6 +1269,19 @@ def launch_checks(launches: dict, n_calls: dict):
              f"({n_lm} launches, {want_lm} expected)"),
             (n_det > 0 and n_det == want_det,
              f"orb_detect: 1 launch per image ({n_det} launches, {want_det} images)")]
+    if "orb_describe" in launches:
+        n_desc, want_desc = launches["orb_describe"], n_calls["extracts"]
+        n_ba = launches["ba_dense_terms"]
+        want_ba = 3 * n_calls["dense_steps"] + n_calls["dense_solves"]
+        checks += [
+            (n_desc > 0 and n_desc == want_desc,
+             f"orb_describe: 1 launch per image ({n_desc} launches, {want_desc} images)"),
+            (n_ba == want_ba and n_calls["dense_solves"] == 2 * n_calls["local_ba"]
+             and (n_ba > 0 or n_calls["map_passes"] == 0),
+             f"ba_dense_terms: 3 launches per dense LM step and 1 per dense solve, 2 solves "
+             f"per local BA, launched where a mapping pass ran ({n_ba} launches, {want_ba} "
+             f"expected; {n_calls['dense_steps']} steps, {n_calls['dense_solves']} solves, "
+             f"{n_calls['local_ba']} local BAs, {n_calls['map_passes']} mapping passes)")]
     return checks
 
 
@@ -1944,6 +2126,41 @@ def phase_dist(smi, device="cuda", kitti=(1400, 140_000, 5_000_000), db=(1023, 1
     return out
 
 
+def ba_relative(a, b) -> float:
+    """max |a - b| / max(1, max |b|)."""
+    return float((a.double() - b.double()).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+def terms_agreement(got, ref, exact):
+    """(distances, whether they meet the bars) of one step's ``dense_terms``
+    ``got`` against the plain version ``ref``: the sums without
+    cancellation (Hcc_d, V, the cost) within 1e-5 relative; the gradient
+    sums (bc, bp), which cancel as the LM converges, and the point blocks'
+    inverses and their products (Hpi, Hpi bp, VH), which float32 fixes only
+    to about a block's condition number times 6e-8, no further from the
+    float64 evaluation ``exact`` than 1e-5 + 4x the plain version's own
+    distance to it (on the mono window the plain version is up to 4e-3 off
+    it in Hpi, PR 13's chip run; bc and bp differ by 5e-2 and 3e-1 of their
+    largest entry between the two float32 routes at converged steps)."""
+    from orbslam2_with_quadrics_tpu_torch.ops import ba
+
+    d = {f: ba_relative(g, r) for f, g, r in zip(ba.DenseTerms._fields, got, ref)}
+    ok = all(d[f] <= 1e-5 for f in ("Hcc_d", "V", "cost"))
+    for f in ("bc", "bp", "Hpi", "Hpib", "VH"):
+        k, p = ba_relative(getattr(got, f), getattr(exact, f)), ba_relative(getattr(ref, f),
+                                                                             getattr(exact, f))
+        d[f + "_float64"] = [k, p]
+        ok = ok and k <= 1e-5 + 4.0 * p
+    return d, ok
+
+
+def in_float64(prob):
+    from orbslam2_with_quadrics_tpu_torch.ops import ba
+
+    return ba.BAProblem(*[x.double() if torch.is_tensor(x) and x.is_floating_point() else x
+                          for x in prob])
+
+
 def phase_dense_ba(mono, smi):
     """Local BA's two solvers on the card, on the last keyframe's window of
     the mono path's map (the free poses and points moved off the optimum
@@ -1953,9 +2170,16 @@ def phase_dense_ba(mono, smi):
     keyframes have no fixed boundary camera, and the monocular scale is a
     gauge freedom that each solver would leave wherever its rounding takes
     it), then both local-BA schedules (4 Huber steps, the purge, 6 plain
-    steps) timed on the problem as the path builds it."""
+    steps) timed on the problem as the path builds it. ``ba_dense_terms``
+    on the same window with the second camera held: at every step of the
+    4 + 6 schedule run through the plain version, the kernels on that step's
+    inputs against it (``terms_agreement``); the schedule through the
+    kernels against it through the plain version (poses within 1e-4, cost
+    within 1e-3 relative); one LM step's terms (the terms pass, the point
+    pass and the cost at a candidate: 3 launches) timed as the frame
+    kernels are. Returns the timings."""
     from orbslam2_with_quadrics_tpu_torch.models import local_mapping as lm
-    from orbslam2_with_quadrics_tpu_torch.ops import ba, lie
+    from orbslam2_with_quadrics_tpu_torch.ops import ba, lie, residuals
 
     slam = mono["slam"]
     m = slam.map
@@ -1978,7 +2202,7 @@ def phase_dense_ba(mono, smi):
     held = prob0.fixed_cam.clone()
     held[torch.nonzero(held < 0.5)[0, 0]] = 1.0
     prob = prob0._replace(valid=prob0.valid * inl.to(torch.float32), fixed_cam=held)
-    loc_ids, _ = ba._local_point_table(prob, L, (C, N))
+    loc_ids, ploc = ba._local_point_table(prob, L, (C, N))
     n_local = int((loc_ids < P).sum())
     pcg, c_pcg = ba.ba_solve(prob, n_iters=6, cg_iters=40, use_huber=False)
     den, c_den = ba.ba_solve_dense(prob, n_iters=6, n_local_pts=L, use_huber=False,
@@ -1988,9 +2212,14 @@ def phase_dense_ba(mono, smi):
     rel = abs(float(c_den) - float(c_pcg)) / max(float(c_pcg), 1.0)
     t = {"ba_solve_dense_ms": wall_ms(lambda: ba.ba_solve_dense(
              prob, n_iters=6, n_local_pts=L, use_huber=False, cam_grid=(C, N))),
+         "ba_solve_dense_plain_ms": wall_ms(lambda: ba.ba_solve_dense(
+             prob, n_iters=6, n_local_pts=L, use_huber=False, cam_grid=(C, N),
+             terms=ba.dense_terms_plain)),
          "ba_solve_ms": wall_ms(lambda: ba.ba_solve(prob, n_iters=6, cg_iters=40,
                                                     use_huber=False)),
          "dense_schedule_ms": wall_ms(lambda: lm._dense_schedule(prob0, (C, N), 4, 6)),
+         "dense_schedule_plain_ms": wall_ms(lambda: lm._dense_schedule(
+             prob0, (C, N), 4, 6, terms=ba.dense_terms_plain)),
          "pcg_schedule_ms": wall_ms(lambda: lm._schedule(prob0, 4, 6))}
     log(f"[solver] local BA on the mono map's window: C = {C} cameras "
         f"({int(cam_ok.sum())} live, {int((prob.fixed_cam < 0.5).sum())} free in the "
@@ -1998,11 +2227,94 @@ def phase_dense_ba(mono, smi):
         f"P = {P}, L = {L} ({n_local} local points), {int(prob.valid.sum())} inlier edges; "
         f"cost {c0:.2f} -> dense {float(c_den):.4f} / PCG {float(c_pcg):.4f} (relative "
         f"{rel:.2e}), poses within {err:.2e}; 6 LM steps: ba_solve_dense "
-        f"{t['ba_solve_dense_ms']:.2f} ms, ba_solve {t['ba_solve_ms']:.2f} ms; schedule 4 + 6: "
-        f"dense {t['dense_schedule_ms']:.2f} ms, PCG {t['pcg_schedule_ms']:.2f} ms ({smi})")
+        f"{t['ba_solve_dense_ms']:.2f} ms (through the plain terms "
+        f"{t['ba_solve_dense_plain_ms']:.2f} ms), ba_solve {t['ba_solve_ms']:.2f} ms; schedule "
+        f"4 + 6: dense {t['dense_schedule_ms']:.2f} ms (through the plain terms "
+        f"{t['dense_schedule_plain_ms']:.2f} ms), PCG {t['pcg_schedule_ms']:.2f} ms ({smi})")
     if not (err <= 1e-4 and rel <= 1e-3 and float(c_den) < c0):
         raise AssertionError(f"ba_solve_dense disagrees with ba_solve on the card: poses {err}, "
                              f"cost {rel}")
+
+    # ba_dense_terms at every step of the schedule, on the plain route's states
+    held0 = prob0._replace(fixed_cam=held)
+    steps = []
+
+    def checked(pr, poses, points, d2, grid, lam=None, ploc=None, n_local=0):
+        ref = ba.dense_terms_plain(pr, poses, points, d2, grid, lam, ploc, n_local)
+        got = ba.dense_terms(pr, poses, points, d2, grid, lam, ploc, n_local)
+        if ploc is None:
+            d = ba_relative(got, ref)
+            steps.append(({"cost": d}, d <= 1e-5))
+        else:
+            p64 = in_float64(pr)
+            exact = ba.dense_terms_plain(p64, poses.double(), points.double(), d2, grid,
+                                         lam.double(), ploc, n_local)
+            steps.append(terms_agreement(got, ref, exact))
+        return ref
+
+    lm._dense_schedule(held0, (C, N), 4, 6, terms=checked)
+    worst = {}
+    for d, _ in steps:
+        for k, v in d.items():
+            worst[k] = ([max(a, b) for a, b in zip(worst.get(k, v), v)] if isinstance(v, list)
+                        else max(worst.get(k, 0.0), v))
+    n_bad = sum(not ok for _, ok in steps)
+    log(f"[kernel] ba_dense_terms at every step of the 4 + 6 schedule ({len(steps)} calls, "
+        f"{n_bad} off the bars): largest relative distance to the plain version "
+        f"{json.dumps({k: v for k, v in worst.items() if not k.endswith('float64')})}; "
+        f"Hpi, Hpib, VH from a float64 evaluation [kernel, plain] "
+        f"{json.dumps({k: v for k, v in worst.items() if k.endswith('float64')})}")
+    if n_bad:
+        raise AssertionError(f"ba_dense_terms disagrees with its plain version on {n_bad} calls")
+    sk, ck_cost = lm._dense_schedule(held0, (C, N), 4, 6)
+    sp, cp_cost = lm._dense_schedule(held0, (C, N), 4, 6, terms=ba.dense_terms_plain)
+    dpose = float((sk.poses - sp.poses).abs().max())
+    dcost = abs(float(ck_cost) - float(cp_cost)) / max(float(cp_cost), 1.0)
+    log(f"[kernel] ba_dense_terms: the 4 + 6 schedule through the kernels against it through "
+        f"the plain version: poses within {dpose:.3g} (tolerance 1e-4), cost {float(ck_cost):.5f} "
+        f"vs {float(cp_cost):.5f} ({dcost:.3g} relative, tolerance 1e-3)")
+    if not (dpose <= 1e-4 and dcost <= 1e-3):
+        raise AssertionError(f"the dense schedule through ba_dense_terms disagrees: poses "
+                             f"{dpose}, cost {dcost}")
+
+    # one LM step's terms at the path's shapes: timed, and its bound
+    lam = torch.full((), 1e-4, device=dev)
+    d2 = residuals.CHI2_STEREO
+    _, ploc0 = ba._local_point_table(prob0, L, (C, N))
+
+    def step_terms(fn):
+        return (fn(prob0, prob0.poses, prob0.points, d2, (C, N), lam=lam, ploc=ploc0,
+                   n_local=L), fn(prob0, prob0.poses, prob0.points, d2, (C, N)))
+
+    valid = prob0.valid > 0
+    n_edges = int(valid.sum())
+    n_pts = int(torch.unique(prob0.pnt_idx[valid]).numel())
+    local = ploc0 < L
+    slots = int(torch.unique(ploc0[local]).numel())
+    pairs = int(torch.unique((torch.arange(C, device=dev)[:, None] * L + ploc0)[local]).numel())
+    E = C * N
+    # each call reads 32 B per edge (point index, observation, stereo flag,
+    # weight, validity), the poses and the points it refers to; the terms
+    # call also the slots (8 B per edge) and writes the camera blocks, the
+    # dense V and VH [C, L, 6, 3] and the point blocks (60 B per slot)
+    nbytes = (2 * (32 * E + 28 * C + 16 * n_pts) + 8 * E + 4 * C + 168 * C
+              + 2 * 72 * C * L + 60 * L + 8)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (n_edges * (BA_TERMS_OPS_PER_EDGE + BA_COST_OPS_PER_EDGE)
+             + slots * BA_SLOT_OPS + pairs * BA_PAIR_OPS) / FP32_OPS_PER_S * 1e3
+    k = {"kernel_ms": graph_kernel_ms(lambda: step_terms(ba.dense_terms)),
+         "call_ms": cuda_median_ms(lambda: step_terms(ba.dense_terms)),
+         "plain_ms": cuda_median_ms(lambda: step_terms(ba.dense_terms_plain), reps=10),
+         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes > t_ops else "operations",
+         "cost_kernel_ms": graph_kernel_ms(lambda: ba.dense_terms(
+             prob0, prob0.poses, prob0.points, d2, (C, N)))}
+    log(f"[kernel] ba_dense_terms one LM step's terms (C = {C}, N = {N}, L = {L}; {n_edges} "
+        f"valid edges, {slots} local slots observed, {pairs} camera-slot pairs): kernel_ms "
+        f"{k['kernel_ms']:.5f} (graph replay of 20 steps; 3 launches each, the cost alone "
+        f"{k['cost_kernel_ms']:.5f}), call_ms {k['call_ms']:.5f}, plain_ms {k['plain_ms']:.4f}, "
+        f"bound_ms {k['bound_ms']:.6f} by {k['bound_by']} ({smi})")
+    t["ba_dense_terms"] = {"mono window": k}
+    t["ba_dense_terms_err"] = max(worst[f] for f in ("Hcc_d", "cost", "V"))
     return t
 
 
@@ -2090,7 +2402,7 @@ def main() -> int:
         phase_solvers(smi)
         runs += [run_main_path("capacity"), run_main_path("capacity", sync=True),
                  run_main_path("mono")]
-        phase_dense_ba(runs[-1], smi)
+        dense = phase_dense_ba(runs[-1], smi)
         runs += [run_main_path("rgbd"), run_main_path("stereo"), run_main_path("quadric")]
         phase_quadric_ba(runs[-1], smi)
         runs += [run_main_path("reloc"),
@@ -2120,17 +2432,30 @@ def main() -> int:
         by_path[tag] = {k: n[k] for k in KERNEL_SOURCE}
     mono = next(r for r in runs if r["path"] == "mono")
     headline = {"masked_hamming_best2": "main-B 4096x1024",  # local-map tracking
-                "pose_lm": "stageB mono 1024", "orb_detect": "480x640 rendered"}
+                "pose_lm": "stageB mono 1024", "orb_detect": "480x640 rendered",
+                "orb_describe": "480x640 rendered", "ba_dense_terms": "mono window"}
+    # the largest difference to the plain version: Hamming and detection
+    # exact, the pose, the angle in rad, the dense terms' camera blocks,
+    # coupling and cost relative
     errors = {"masked_hamming_best2": max_err, "pose_lm": frame_kernels["pose_lm"][0],
-              "orb_detect": frame_kernels["orb_detect"][0]}
+              "orb_detect": frame_kernels["orb_detect"][0],
+              "orb_describe": frame_kernels["orb_describe"][0],
+              "ba_dense_terms": dense["ba_dense_terms_err"]}
     shapes = {"masked_hamming_best2": times, "pose_lm": frame_kernels["pose_lm"][1],
-              "orb_detect": frame_kernels["orb_detect"][1]}
+              "orb_detect": frame_kernels["orb_detect"][1],
+              "orb_describe": frame_kernels["orb_describe"][1],
+              "ba_dense_terms": dense["ba_dense_terms"]}
     per_frame = {  # on the mono path, per tracked frame (the hamming kernel's
-        # mapping-pass launches taken out) and per image
+        # mapping-pass launches taken out), per image, per mapping pass
         "masked_hamming_best2": (by_path["mono"]["masked_hamming_best2"]
                                  - 2 * mono["n_map_passes"]) / max(mono["n_frame_steps"], 1),
         "pose_lm": by_path["mono"]["pose_lm"] / max(mono["n_frame_steps"], 1),
-        "orb_detect": by_path["mono"]["orb_detect"] / max(mono["n_calls"]["images"], 1)}
+        "orb_detect": by_path["mono"]["orb_detect"] / max(mono["n_calls"]["images"], 1),
+        "orb_describe": by_path["mono"]["orb_describe"] / max(mono["n_calls"]["images"], 1),
+        "ba_dense_terms": by_path["mono"]["ba_dense_terms"] / max(mono["n_map_passes"], 1)}
+    per_unit = {"masked_hamming_best2": "tracked frame", "pose_lm": "tracked frame",
+                "orb_detect": "image", "orb_describe": "image",
+                "ba_dense_terms": "mapping pass"}
     kernels = []
     for kname in KERNEL_SOURCE:
         t = shapes[kname][headline[kname]]
@@ -2139,7 +2464,8 @@ def main() -> int:
             "replaces": KERNEL_REPLACES[kname],
             "launches": sum(p[kname] for p in by_path.values()),
             "launches_by_path": {p: v[kname] for p, v in by_path.items()},
-            "launches_per_frame": per_frame[kname], "max_abs_err": errors[kname],
+            "launches_per_frame": per_frame[kname], "launches_per": per_unit[kname],
+            "max_abs_err": errors[kname],
             "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"], "call_ms": t["call_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "shapes": shapes[kname]})

@@ -319,16 +319,18 @@ def _schedule(prob, first_iters: int, second_iters: int):
     return ba.ba_solve(prob, n_iters=second_iters, cg_iters=40, use_huber=False)
 
 
-def _dense_schedule(prob, cam_grid, first_iters: int, second_iters: int):
+def _dense_schedule(prob, cam_grid, first_iters: int, second_iters: int, terms=None):
     """``_schedule`` with the dense-Schur solver over a cam-major [C, N]
-    edge table, at most 8192 points coupling the cameras."""
+    edge table, at most 8192 points coupling the cameras; ``terms`` is the
+    route of the solver's per-edge terms (``ba.dense_terms`` where None: the
+    kernels on the card)."""
     n_loc = min(prob.points.shape[0], 8192)
     prob, _ = ba.ba_solve_dense(prob, n_iters=first_iters, n_local_pts=n_loc,
-                                use_huber=True, cam_grid=cam_grid)
+                                use_huber=True, cam_grid=cam_grid, terms=terms)
     _, inl = ba.edge_chi2(prob)
     prob = prob._replace(valid=prob.valid * inl.to(torch.float32))
     return ba.ba_solve_dense(prob, n_iters=second_iters, n_local_pts=n_loc,
-                             use_huber=False, cam_grid=cam_grid)
+                             use_huber=False, cam_grid=cam_grid, terms=terms)
 
 
 def run_global_ba(m: ms.MapState, Kc, bf, inv_sigma2_tab, n_iters: int = 10):

@@ -13,18 +13,24 @@ S = Hcc - W Hpp^-1 W^T:
   ``parallel/dist_ba.py``);
 - ``ba_solve_dense``: S built densely over a cam-major [C, N] edge table
   and Cholesky-solved (local BA on the card, where the window's <= ~50
-  cameras make S at most ~300 x 300).
+  cameras make S at most ~300 x 300). Its per-edge terms, camera blocks
+  and point blocks (:func:`dense_terms`) are, on a CUDA tensor, the
+  hand-written kernels of ``csrc/ba_dense_terms.cu`` (the reference laid
+  them out as [C, N] planes and one-hot MXU matmuls for the TPU); the
+  ``S`` product, the Cholesky solve and the update stay PyTorch.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from . import lie, residuals
+from . import cuda_kernels, lie, residuals
 from .pose_opt import robust_cost
 
 
@@ -257,16 +263,6 @@ def _grid_chi2(prob: BAProblem, e, z, cam_grid):
     return row_w, is2, ok, torch.sum(e * e * row_w, dim=-1) * is2
 
 
-def _cost_grid(prob: BAProblem, poses, points, huber_delta2: float, cam_grid):
-    """Robust cost of the cam-major edge table (the LM accept test)."""
-    C, N = cam_grid
-    e, z = residuals.residual_only(poses[:, None, :], prob.K, prob.bf,
-                                   points[prob.pnt_idx.reshape(C, N)],
-                                   prob.uvr.reshape(C, N, 3))
-    _, _, ok, chi2 = _grid_chi2(prob, e, z, cam_grid)
-    return torch.sum(robust_cost(chi2, huber_delta2) * ok)
-
-
 def _inv3x3(A):
     """Closed-form batched 3x3 inverse (adjugate / determinant): no batched
     LU, and a singular block gives large finite numbers, never a host sync."""
@@ -286,23 +282,36 @@ def _inv3x3(A):
     return adj * idet[..., None, None]
 
 
-def _cholesky_solve_nan(S, g):
-    """x with S x = g by Cholesky; NaN where S is not positive definite
-    (XLA's Cholesky gives NaN there, so the step is rejected). Two
-    triangular solves and no read of the error flag on the host."""
-    L, info = torch.linalg.cholesky_ex(S)
-    y = torch.linalg.solve_triangular(L, g[:, None], upper=False)
-    x = torch.linalg.solve_triangular(L.mT, y, upper=True)[:, 0]
-    return torch.where(info == 0, x, torch.full_like(x, float("nan")))
+# the terms kernel sorts a camera's edges in shared memory: N <= 8192
+_MAX_TERMS_EDGES = 8192
 
 
-def _dense_schur_step(prob: BAProblem, poses, points, lam, huber_delta2: float,
-                      loc_ids, ploc, cam_grid):
-    """One LM step solving the reduced camera system exactly. Returns
-    (poses, points, cost, accepted)."""
+class DenseTerms(NamedTuple):
+    """What one dense-Schur LM step needs of its edges: the damped camera
+    blocks, the point blocks of the L local slots and their coupling."""
+
+    Hcc_d: torch.Tensor   # [C,6,6] Hcc + lam diag(Hcc) + (1e-8 + fixed_cam) I
+    bc: torch.Tensor      # [C,6] -Jc^T W e
+    cost: torch.Tensor    # [] robust cost at the step's estimate
+    V: torch.Tensor       # [C,L,6,3] Jc^T W Jp summed per (camera, slot)
+    Hpi: torch.Tensor     # [L,3,3] inverse of the damped Hpp
+    bp: torch.Tensor      # [L,3] -Jp^T W e
+    Hpib: torch.Tensor    # [L,3] Hpi bp
+    VH: torch.Tensor      # [C,L,6,3] V Hpi
+
+
+def dense_terms_plain(prob: BAProblem, poses, points, huber_delta2: float, cam_grid,
+                      lam=None, ploc=None, n_local: int = 0):
+    """Plain PyTorch version of :func:`dense_terms` (the CPU route, and what
+    the kernels are held against on the card)."""
     C, N = cam_grid
-    P = points.shape[0]
-    L = loc_ids.shape[0]
+    if ploc is None:  # the robust cost alone
+        e, z = residuals.residual_only(poses[:, None, :], prob.K, prob.bf,
+                                       points[prob.pnt_idx.reshape(C, N)],
+                                       prob.uvr.reshape(C, N, 3))
+        _, _, ok, chi2 = _grid_chi2(prob, e, z, cam_grid)
+        return torch.sum(robust_cost(chi2, huber_delta2) * ok)
+    L = n_local
     dev, dt = points.device, points.dtype
     pid = prob.pnt_idx.reshape(C, N)
     e, Jc, Jp, z = residuals.residual_and_jacobians(
@@ -339,46 +348,194 @@ def _dense_schur_step(prob: BAProblem, poses, points, lam, huber_delta2: float,
     Hpp_d = Hpp + lam * Hpp * eye3 + torch.where(
         torch.abs(trace) > 1e-12, 1e-8, 1.0)[:, None, None] * eye3
     Hpi = _inv3x3(Hpp_d)
+    return DenseTerms(Hcc_d, bc, cost, V, Hpi, bp, torch.einsum("ljk,lk->lj", Hpi, bp),
+                      torch.einsum("clij,ljk->clik", V, Hpi))
+
+
+def dense_terms(prob: BAProblem, poses, points, huber_delta2: float, cam_grid,
+                lam=None, ploc=None, n_local: int = 0):
+    """The per-edge terms of the cam-major [C, N] edge table at (``poses``,
+    ``points``). With ``ploc`` ([C, N] int64 local slot of each edge's
+    point, ``n_local`` = L meaning none) and the damping ``lam``: a
+    :class:`DenseTerms`; without: the robust cost alone (the LM accept
+    test). CPU tensors take :func:`dense_terms_plain`; CUDA tensors the
+    kernels of ``csrc/ba_dense_terms.cu``: two launches for the terms (the
+    terms pass, then the point pass), one for the cost alone."""
+    dev = points.device
+    if dev.type == "cpu":
+        return dense_terms_plain(prob, poses, points, huber_delta2, cam_grid, lam, ploc,
+                                 n_local)
+    if dev.type != "cuda":
+        raise ValueError(f"dense_terms: unsupported device {dev}")
+    return _dense_terms_cuda(prob, poses, points, huber_delta2, cam_grid, lam, ploc, n_local)
+
+
+@functools.lru_cache(maxsize=1)
+def _dense_launchers():
+    """The three C entry points of ``csrc/ba_dense_terms.cu``, typed once."""
+    lib = cuda_kernels.library("ba_dense_terms")
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    terms, points, cost = (lib.ba_dense_terms_launch, lib.ba_dense_points_launch,
+                           lib.ba_dense_cost_launch)
+    terms.argtypes = [vp, f32, f32, f32, i32, i32, i32] + [vp] * 7
+    points.argtypes = [vp, vp, f32, i32, i32] + [vp] * 5
+    cost.argtypes = [vp, f32, f32, i32, i32] + [vp] * 4
+    for fn in (terms, points, cost):
+        fn.restype = ctypes.c_int
+    return terms, points, cost
+
+
+def _scalar(x, dev):
+    """(address, value) of a scalar argument: a float32 tensor of one
+    element on ``dev`` is read by the kernel; a number is passed by value."""
+    if torch.is_tensor(x):
+        if x.device != dev or x.dtype != torch.float32 or x.numel() != 1:
+            raise ValueError(f"dense_terms: scalar {x.dtype} {tuple(x.shape)} on {x.device}, "
+                             f"expected float32 of one element on {dev}")
+        return x.data_ptr(), 0.0
+    return 0, float(x)
+
+
+def _dense_terms_cuda(prob, poses, points, huber_delta2, cam_grid, lam, ploc, n_local):
+    C, N = cam_grid
+    P = points.shape[0]
+    dev = points.device
+    E = C * N
+    want = {"poses": (poses, (C, 7)), "points": (points, (P, 3)), "K": (prob.K, (4,)),
+            "uvr": (prob.uvr, (E, 3)), "is_stereo": (prob.is_stereo, (E,)),
+            "inv_sigma2": (prob.inv_sigma2, (E,)), "valid": (prob.valid, (E,)),
+            "fixed_cam": (prob.fixed_cam, (C,)), "fixed_pnt": (prob.fixed_pnt, (P,)),
+            "pnt_idx": (prob.pnt_idx, (E,))}
+    if ploc is not None:
+        want["ploc"] = (ploc, (C, N))
+    t = {}
+    for name, (x, shape) in want.items():
+        dtype = torch.int64 if name in ("pnt_idx", "ploc") else torch.float32
+        if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"dense_terms: {name} is {x.dtype} {tuple(x.shape)} on {x.device}, "
+                             f"expected {dtype} {shape} on {dev}")
+        t[name] = x.contiguous()
+    if E == 0:
+        raise ValueError(f"dense_terms: an empty edge table {cam_grid}")
+    bf_ptr, bf = _scalar(prob.bf, dev)
+    lam_ptr, lam_val = (0, 0.0) if lam is None else _scalar(lam, dev)
+    ptrs = (ctypes.c_int64 * 13)(
+        t["poses"].data_ptr(), t["points"].data_ptr(), t["K"].data_ptr(), bf_ptr,
+        t["pnt_idx"].data_ptr(), t["uvr"].data_ptr(), t["is_stereo"].data_ptr(),
+        t["inv_sigma2"].data_ptr(), t["valid"].data_ptr(), t["fixed_cam"].data_ptr(),
+        t["fixed_pnt"].data_ptr(), t["ploc"].data_ptr() if ploc is not None else 0, lam_ptr)
+    d2 = float(huber_delta2) if huber_delta2 > 0 else 0.0
+    f32 = dict(dtype=torch.float32, device=dev)
+    cost = torch.empty((), **f32)
+    cost_part = torch.empty(C, **f32)
+    ticket = torch.empty(1, dtype=torch.int32, device=dev)
+    launch_terms, launch_points, launch_cost = _dense_launchers()
+    ctx, index = cuda_kernels.launch_device(dev)
+    stream = torch.cuda.current_stream(index).cuda_stream
+    if ploc is None:
+        with ctx:
+            err = launch_cost(ptrs, bf, d2, C, N, cost.data_ptr(), cost_part.data_ptr(),
+                              ticket.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"ba_dense_terms (cost) launch failed: cudaError {err}")
+        cuda_kernels.LAUNCHES["ba_dense_terms"] += 1
+        return cost
+    L = int(n_local)
+    if L < 1 or N > _MAX_TERMS_EDGES or L * (1 << (N - 1).bit_length()) >= 2 ** 32 - 1:
+        raise ValueError(f"dense_terms: N = {N} edges per camera and L = {L} local slots "
+                         f"beyond the kernel's limits (N <= {_MAX_TERMS_EDGES}, L N < 2^32)")
+    Hcc_d = torch.empty((C, 6, 6), **f32)
+    bc = torch.empty((C, 6), **f32)
+    table = torch.empty((C, L + 1, 27), **f32)
+    Hpi = torch.empty((L, 3, 3), **f32)
+    bp = torch.empty((L, 3), **f32)
+    Hpib = torch.empty((L, 3), **f32)
+    VH = torch.empty((C, L, 6, 3), **f32)
+    with ctx:
+        err = launch_terms(ptrs, bf, lam_val, d2, C, N, L, Hcc_d.data_ptr(), bc.data_ptr(),
+                           cost.data_ptr(), cost_part.data_ptr(), ticket.data_ptr(),
+                           table.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"ba_dense_terms (terms) launch failed: cudaError {err}")
+        cuda_kernels.LAUNCHES["ba_dense_terms"] += 1
+        err = launch_points(table.data_ptr(), lam_ptr, lam_val, C, L, Hpi.data_ptr(),
+                            bp.data_ptr(), Hpib.data_ptr(), VH.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"ba_dense_terms (points) launch failed: cudaError {err}")
+        cuda_kernels.LAUNCHES["ba_dense_terms"] += 1
+    V = table[:, :L, 9:].unflatten(-1, (6, 3))
+    return DenseTerms(Hcc_d, bc, cost, V, Hpi, bp, Hpib, VH)
+
+
+def _cost_grid(prob: BAProblem, poses, points, huber_delta2: float, cam_grid, terms=None):
+    """Robust cost of the cam-major edge table (the LM accept test)."""
+    return (terms or dense_terms)(prob, poses, points, huber_delta2, cam_grid)
+
+
+def _cholesky_solve_nan(S, g):
+    """x with S x = g by Cholesky; NaN where S is not positive definite
+    (XLA's Cholesky gives NaN there, so the step is rejected). Two
+    triangular solves and no read of the error flag on the host."""
+    L, info = torch.linalg.cholesky_ex(S)
+    y = torch.linalg.solve_triangular(L, g[:, None], upper=False)
+    x = torch.linalg.solve_triangular(L.mT, y, upper=True)[:, 0]
+    return torch.where(info == 0, x, torch.full_like(x, float("nan")))
+
+
+def _dense_schur_step(prob: BAProblem, poses, points, lam, huber_delta2: float,
+                      loc_ids, ploc, cam_grid, terms=None):
+    """One LM step solving the reduced camera system exactly; ``terms`` is
+    the route of its per-edge terms and its accept test's cost
+    (:func:`dense_terms` where None, or :func:`dense_terms_plain`). Returns
+    (poses, points, cost, accepted)."""
+    C, N = cam_grid
+    P = points.shape[0]
+    L = loc_ids.shape[0]
+    dev, dt = points.device, points.dtype
+    t = (terms or dense_terms)(prob, poses, points, huber_delta2, cam_grid, lam=lam, ploc=ploc, n_local=L)
 
     # S = blockdiag(Hcc_d) - V Hpi V^T; g = bc - V Hpi bp
-    VH = torch.einsum("clij,ljk->clik", V, Hpi)
-    S_cross = (VH.permute(0, 2, 1, 3).reshape(6 * C, 3 * L)
-               @ V.permute(0, 2, 1, 3).reshape(6 * C, 3 * L).T)
+    S_cross = (t.VH.permute(0, 2, 1, 3).reshape(6 * C, 3 * L)
+               @ t.V.permute(0, 2, 1, 3).reshape(6 * C, 3 * L).T)
     eyeC = torch.eye(C, dtype=dt, device=dev)
-    S = (eyeC[:, None, :, None] * Hcc_d[:, :, None, :]).reshape(6 * C, 6 * C) - S_cross
-    g = bc - torch.einsum("clij,lj->ci", V, torch.einsum("ljk,lk->lj", Hpi, bp))
+    S = (eyeC[:, None, :, None] * t.Hcc_d[:, :, None, :]).reshape(6 * C, 6 * C) - S_cross
+    g = t.bc - torch.einsum("clij,lj->ci", t.V, t.Hpib)
     dc = _cholesky_solve_nan(S + 1e-10 * torch.eye(6 * C, dtype=dt, device=dev),
                              g.reshape(-1)).reshape(C, 6)
     dc = dc * (1.0 - prob.fixed_cam)[:, None]
 
     # back-substitute the local points: dp = Hpi (bp - V^T dc)
-    dp_L = torch.einsum("ljk,lk->lj", Hpi, bp - torch.einsum("clij,ci->lj", V, dc))
+    dp_L = torch.einsum("ljk,lk->lj", t.Hpi, t.bp - torch.einsum("clij,ci->lj", t.V, dc))
     new_points = points + torch.zeros((P + 1, 3), dtype=dt, device=dev).index_add_(
         0, loc_ids, dp_L)[:P]
     new_poses = lie.se3_retract(poses, dc)
-    new_cost = _cost_grid(prob, new_poses, new_points, huber_delta2, cam_grid)
-    acc = ((new_cost < cost) & torch.all(torch.isfinite(dc))
+    new_cost = _cost_grid(prob, new_poses, new_points, huber_delta2, cam_grid, terms)
+    acc = ((new_cost < t.cost) & torch.all(torch.isfinite(dc))
            & torch.all(torch.isfinite(dp_L)))
     return (torch.where(acc, new_poses, poses), torch.where(acc, new_points, points),
-            torch.where(acc, new_cost, cost), acc)
+            torch.where(acc, new_cost, t.cost), acc)
 
 
 def ba_solve_dense(prob: BAProblem, n_iters: int = 10, n_local_pts: int = 8192,
-                   use_huber: bool = True, cam_grid=None):
+                   use_huber: bool = True, cam_grid=None, terms=None):
     """``ba_solve`` with the dense-Schur direct step; the same LM damping
     and accept schedule. ``cam_grid = (C, N)`` declares the edge table
-    cam-major (``cam_idx`` = arange(C) repeated N times) and is required.
-    Returns (prob, final_cost)."""
+    cam-major (``cam_idx`` = arange(C) repeated N times) and is required;
+    ``terms`` is the route of the per-edge terms (:func:`dense_terms` where
+    None; see :func:`_dense_schur_step`).
+    Returns (prob, final_cost). On the card a solve launches the
+    ``ba_dense_terms`` kernels 3 n_iters + 1 times: the cost at the start,
+    then per step the terms pass, the point pass and the candidate's cost."""
     if cam_grid is None:
         raise ValueError("ba_solve_dense needs a cam-major edge table (cam_grid=(C, N)); "
                          "use ba_solve for other edge layouts")
     huber_delta2 = residuals.CHI2_STEREO if use_huber else 0.0
     loc_ids, ploc = _local_point_table(prob, n_local_pts, cam_grid)
     poses, points = prob.poses, prob.points
-    cost = _cost_grid(prob, poses, points, huber_delta2, cam_grid)
+    cost = _cost_grid(prob, poses, points, huber_delta2, cam_grid, terms)
     lam = torch.full((), 1e-4, dtype=poses.dtype, device=poses.device)
     for _ in range(n_iters):
         poses, points, cost, ok = _dense_schur_step(prob, poses, points, lam, huber_delta2,
-                                                    loc_ids, ploc, cam_grid)
+                                                    loc_ids, ploc, cam_grid, terms)
         lam = torch.clamp(torch.where(ok, lam * 0.5, lam * 4.0), 1e-8, 1e8)
     return prob._replace(poses=poses, points=points), cost

@@ -15,6 +15,14 @@ Counterpart of the reference's ``ops/pallas_kernels.py``. Each source
   top-k for every pyramid level of one image in one launch, the counterpart
   of the reference's XLA-fused ``orb.detect_level``. Wrapper in
   ``ops/orb.py``.
+- ``orb_describe`` — the orientation and rotated-BRIEF descriptor of every
+  keypoint of one image in one launch, replacing the descriptor stage of
+  the reference's ``orb.extract`` (one-hot MXU gathers on the TPU). Wrapper
+  in ``ops/orb.py`` (``describe``).
+- ``ba_dense_terms`` — the dense-Schur local BA's per-edge terms, camera
+  blocks and point blocks (a terms pass and a point pass), and the robust
+  cost alone, replacing the planar, one-hot-matmul body of the reference's
+  ``ba._dense_schur_step``. Wrapper in ``ops/ba.py`` (``dense_terms``).
 
 A CPU tensor takes a kernel's plain version; a CUDA tensor launches the
 kernel or raises. Each source is compiled at first use by ``nvcc`` for
@@ -49,9 +57,11 @@ _MAX_TARGETS = 1 << 22
 _MAX_BATCH = 65535
 _MAX_Q_PER_BLOCK = 64
 
-# extra nvcc flags per source: the LM kernel keeps each multiply and add
-# rounded on its own, as the plain version's elementwise ops round them
-_FLAGS = {"masked_hamming_best2": (), "pose_lm": ("-fmad=false",), "orb_detect": ()}
+# extra nvcc flags per source: the LM, descriptor and dense-BA kernels keep
+# each multiply and add rounded on its own, as the plain versions'
+# elementwise ops round them
+_FLAGS = {"masked_hamming_best2": (), "pose_lm": ("-fmad=false",), "orb_detect": (),
+          "orb_describe": ("-fmad=false",), "ba_dense_terms": ("-fmad=false",)}
 KERNELS = tuple(_FLAGS)
 
 LAUNCHES = {name: 0 for name in KERNELS}

@@ -29,6 +29,13 @@ launches and latency, not bytes: reading each level once is 1.3 MB per
 ~100 small ops per level. One block per 32x32 cell of every level keeps
 the whole chain in shared memory; each level's global top-``n_out`` and
 the keypoint assembly stay PyTorch glue, one padded sort over all levels.
+
+The descriptor stage on a CUDA tensor is one launch per image of
+``csrc/orb_describe.cu`` (:func:`describe`): one block per keypoint cuts
+its raw patch, reduces its moments, blurs the patch in shared memory and
+packs its 256 tests with warp ballots, replacing the reference's one-hot
+MXU gathers (``orbslam2_with_quadrics_tpu/ops/orb.py:366-467``); the plain
+version (:func:`describe_plain`) is the CPU route.
 """
 
 from __future__ import annotations
@@ -397,9 +404,7 @@ def extract_from_pyramid(pyr, n_features: int = 1000, scale: float = 1.2,
     """:func:`extract` on given pyramid levels (list of [h_l, w_l])."""
     dev = pyr[0].device
     n_levels = len(pyr)
-    shapes = [tuple(p.shape) for p in pyr]
     counts = per_level_counts(n_features, n_levels, scale)
-    hc, wc = shapes[0]
 
     yx, kp_s, valid = detect_levels(pyr, counts, th_fast, th_fast_min, cell)
     kp_y, kp_x = yx[:, 0], yx[:, 1]
@@ -407,6 +412,21 @@ def extract_from_pyramid(pyr, n_features: int = 1000, scale: float = 1.2,
         [torch.full((counts[l],), l, dtype=torch.int64, device=dev)
          for l in range(n_levels)]
     )
+    ang, desc = describe(pyr, kp_y, kp_x, lvl_ids, valid)
+
+    sf = scale_factors(n_levels, scale, dev)[0][lvl_ids]
+    uv = torch.stack([kp_x.to(torch.float32) * sf, kp_y.to(torch.float32) * sf], dim=-1)
+    return Features(uv=uv, level=lvl_ids.to(torch.int32), angle=ang, score=kp_s,
+                    desc=desc, valid=valid)
+
+
+def describe_plain(pyr, kp_y, kp_x, lvl_ids, valid):
+    """Plain PyTorch version of :func:`describe` (the CPU route, and what
+    the kernel is held against on the card)."""
+    dev = pyr[0].device
+    n_levels = len(pyr)
+    shapes = [tuple(p.shape) for p in pyr]
+    hc, wc = shapes[0]
     kp_yc = torch.where(valid, kp_y, EDGE_THRESHOLD)
     kp_xc = torch.where(valid, kp_x, EDGE_THRESHOLD)
 
@@ -448,12 +468,71 @@ def extract_from_pyramid(pyr, n_features: int = 1000, scale: float = 1.2,
     ox = torch.clamp(rx + r, 0, 2 * r)
     vals = blur31[torch.arange(n, device=dev)[:, None], oy, ox]
     desc = pack_bits(vals[:, 0::2] < vals[:, 1::2])
-    desc = torch.where(valid[:, None], desc, 0)
+    return ang, torch.where(valid[:, None], desc, 0)
 
-    sf = scale_factors(n_levels, scale, dev)[0][lvl_ids]
-    uv = torch.stack([kp_x.to(torch.float32) * sf, kp_y.to(torch.float32) * sf], dim=-1)
-    return Features(uv=uv, level=lvl_ids.to(torch.int32), angle=ang, score=kp_s,
-                    desc=desc, valid=valid)
+
+def describe(pyr, kp_y, kp_x, lvl_ids, valid):
+    """Orientation and rotated-BRIEF descriptor of each keypoint: its
+    level pixel (``kp_y``, ``kp_x``, int64 [N], as :func:`detect_levels`
+    returns them), its level ``lvl_ids`` (int64 [N]) and ``valid`` ([N]
+    bool). Returns (angle [N] float32, desc [N, 8] int32; 0 and zero words
+    where not valid). CPU tensors take :func:`describe_plain`; CUDA tensors
+    one launch of ``csrc/orb_describe.cu`` for all keypoints."""
+    dev = pyr[0].device
+    if dev.type == "cpu":
+        return describe_plain(pyr, kp_y, kp_x, lvl_ids, valid)
+    if dev.type != "cuda":
+        raise ValueError(f"describe: unsupported device {dev}")
+    return _describe_cuda(pyr, kp_y, kp_x, lvl_ids, valid)
+
+
+@functools.lru_cache(maxsize=1)
+def _describe_launcher():
+    fn = cuda_kernels.library("orb_describe").orb_describe_launch
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p, ctypes.c_int64] * 2
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 5)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _describe_cuda(pyr, kp_y, kp_x, lvl_ids, valid):
+    dev = pyr[0].device
+    n = kp_y.shape[0]
+    if not 1 <= len(pyr) <= _MAX_LEVELS:
+        raise ValueError(f"describe: {len(pyr)} levels (the kernel takes 1..{_MAX_LEVELS})")
+    h0, w0 = pyr[0].shape
+    if h0 < 2 * PATCH_RADIUS + 7 or w0 < 2 * PATCH_RADIUS + 7:
+        raise ValueError(f"describe: level 0 is {h0}x{w0}, smaller than a 37x37 patch")
+    for l, im in enumerate(pyr):
+        if im.device != dev or im.dtype != torch.float32 or im.dim() != 2:
+            raise ValueError(f"describe: level {l} is {im.dtype} {tuple(im.shape)} on "
+                             f"{im.device}, expected a 2-D float32 image on {dev}")
+    for name, t, dtype in (("kp_y", kp_y, torch.int64), ("kp_x", kp_x, torch.int64),
+                           ("lvl_ids", lvl_ids, torch.int64), ("valid", valid, torch.bool)):
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != (n,):
+            raise ValueError(f"describe: {name} is {t.dtype} {tuple(t.shape)} on {t.device}, "
+                             f"expected {dtype} [{n}] on {dev}")
+    imgs = [im.contiguous() for im in pyr]
+    lvl_ids, valid = lvl_ids.contiguous(), valid.contiguous()
+    angle = torch.empty(n, dtype=torch.float32, device=dev)
+    desc = torch.empty((n, 8), dtype=torch.int32, device=dev)
+    if n == 0:
+        return angle, desc
+    levels = (ctypes.c_int64 * (3 * len(imgs)))(*[
+        v for im in imgs for v in (im.data_ptr(),) + tuple(im.shape)])
+    gauss = (ctypes.c_float * 7)(*_gauss7(2.0).tolist())
+    pat = device_const(brief_pattern, device=str(dev))
+    ctx, index = cuda_kernels.launch_device(dev)
+    with ctx:
+        err = _describe_launcher()(
+            levels, len(imgs), h0, w0, kp_y.data_ptr(), kp_y.stride(0), kp_x.data_ptr(),
+            kp_x.stride(0), lvl_ids.data_ptr(), valid.data_ptr(), n, pat.data_ptr(), gauss,
+            angle.data_ptr(), desc.data_ptr(), torch.cuda.current_stream(index).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"orb_describe launch failed: cudaError {err}")
+    cuda_kernels.LAUNCHES["orb_describe"] += 1
+    return angle, desc
 
 
 @functools.lru_cache(maxsize=16)

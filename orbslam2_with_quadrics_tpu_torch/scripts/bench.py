@@ -56,9 +56,11 @@ work, not any implementation's:
   compares, brighter and darker) and their maxima (2 x 16): 304 ops, and
   3x3 non-maximum suppression: 8 compares; per keypoint the intensity
   centroid over the 31x31 circle (2 multiply-adds per pixel), the 7x7
-  Gaussian at each of the 512 BRIEF taps (49 multiply-adds) and 256 tests
-  (two rotated taps, 8 multiply-adds, and a compare: 17 ops each). Bytes:
-  the image read once, the features written once.
+  Gaussian of the 31x31 centre as two 7-tap passes (31x37 vertical, 31x31
+  horizontal: 14 FLOP per output, fewer than 49 multiply-adds at each of
+  the 512 BRIEF taps; the descriptor kernel's way) and 256 tests (two
+  rotated taps, 8 multiply-adds, and a compare: 17 ops each). Bytes: the
+  image read once, the features written once.
 - frame = extract + ``track_frame``: 24 ops (8 XOR, 8 POPC, 7 adds, one
   best-two compare) per Hamming pair that the windows, levels and validity
   admit for these inputs (counted from the kernel wrapper's arguments
@@ -126,7 +128,8 @@ def extract_cost(cfg: fe.FrontendConfig, img, feats):
     dy, dx = np.mgrid[-r: r + 1, -r: r + 1]
     circle = int(((dy * dy + dx * dx) <= r * r).sum())
     n_taps = 2 * 256
-    per_kp = 4 * circle + n_taps * 2 * 49 + 256 * 17
+    blur = min(n_taps * 2 * 49, 2 * 7 * ((2 * r + 1) * (2 * r + 7) + (2 * r + 1) ** 2))
+    per_kp = 4 * circle + blur + 256 * 17
     flops = 8 * sum(px[1:]) + (304 + 8) * sum(px) + per_kp * cfg.n_features
     return float(flops), float(_nbytes([img]) + _nbytes(feats))
 

@@ -159,6 +159,7 @@ def test_admitted_pairs_and_extract_model():
     px = [h * w for h, w in [(480, 640), (400, 533), (333, 444), (278, 370), (231, 309),
                              (193, 257), (161, 214), (134, 179)]]
     circle = 709     # pixels of the 31x31 disc of radius 15
-    per_kp = 4 * circle + 512 * 98 + 256 * 17
+    blur = 14 * (31 * 37 + 31 * 31)  # two 7-tap passes over the 31x31 centre
+    per_kp = 4 * circle + blur + 256 * 17
     assert flops == 8 * sum(px[1:]) + 312 * sum(px) + 1024 * per_kp
     assert nbytes == 480 * 640 * 4

@@ -1,6 +1,7 @@
-"""The main path's two dispatch-bound loops and their CUDA kernels: the
-motion-only LM (``pose_opt.pose_optimization``, kernel ``csrc/pose_lm.cu``)
-and ORB detection (``orb.detect_levels``, kernel ``csrc/orb_detect.cu``).
+"""The frame's CUDA kernels: the motion-only LM
+(``pose_opt.pose_optimization``, kernel ``csrc/pose_lm.cu``), ORB detection
+(``orb.detect_levels``, kernel ``csrc/orb_detect.cu``) and the ORB
+descriptors (``orb.describe``, kernel ``csrc/orb_describe.cu``).
 
 On the CPU:
 - the plain LM against the reference's ``pose_optimization``, mono and mixed
@@ -19,6 +20,16 @@ On the CPU:
   its own 40x40 tile, top-cap by rank counting over the compacted finite
   values) through the same assembly as the kernel's output, equal to the
   plain version bit for bit;
+- ``describe_plain`` against the reference's ``extract`` on the reference's
+  pyramid (angles within 1e-4, >= 99% of the descriptors bit-equal and
+  bit-equal wherever the angles are), and a CPU model of the descriptor
+  kernel's loop order (``csrc/orb_describe.cu``: the patch cut, the
+  moments' float64 block reduction, the blur, the taps, the ballots)
+  against it: angles within 1e-6 rad of a float64 evaluation of the
+  moments, and within 1e-5 rad of the plain version's plus the plain
+  version's own distance to that evaluation (its float32 matmul); >= 99%
+  bit-equal, bit-equal wherever the angles are, every keypoint bit-equal
+  on a one-level integer image;
 - the wrappers' CPU route launches nothing.
 
 The reference (and with it JAX) is imported inside :func:`jax_ref`, so the
@@ -369,14 +380,32 @@ def test_detect_kernel_model_matches_plain(name):
 
 
 def test_cpu_routes_launch_nothing():
+    from orbslam2_with_quadrics_tpu_torch.ops import ba
+
     ck.reset_launch_counts()
     case = to_torch(pose_case(seed=2))
     pose_opt.pose_optimization(*case)
     img = torch.as_tensor(textured_image(96, 128, seed=1))
     orb.extract(img, n_features=64, n_levels=2)
     orb.detect_level(img, 16)
+    pyr = orb.build_pyramid(img, orb.pyramid_shapes(96, 128, 2, 1.2))
+    yx, _, valid = orb.detect_levels(pyr, [40, 24])
+    orb.describe(pyr, yx[:, 0], yx[:, 1], torch.arange(64) // 40, valid)
+    C, N, P = 3, 16, 40
+    g = torch.Generator().manual_seed(0)
+    prob = ba.BAProblem(
+        poses=lie.se3_exp(0.01 * torch.randn(C, 6, generator=g)),
+        points=torch.randn(P, 3, generator=g) + torch.tensor([0.0, 0.0, 6.0]),
+        K=torch.tensor([500.0, 500.0, 320.0, 240.0]), bf=torch.tensor(40.0),
+        cam_idx=torch.arange(C).repeat_interleave(N),
+        pnt_idx=torch.randint(0, P, (C * N,), generator=g),
+        uvr=torch.rand(C * N, 3, generator=g) * 300.0, is_stereo=torch.ones(C * N),
+        inv_sigma2=torch.ones(C * N), valid=torch.ones(C * N), fixed_cam=torch.zeros(C),
+        fixed_pnt=torch.zeros(P))
+    ba.ba_solve_dense(prob, n_iters=2, n_local_pts=P, cam_grid=(C, N))
     assert all(n == 0 for n in ck.LAUNCHES.values()), ck.LAUNCHES
-    assert set(ck.LAUNCHES) == {"masked_hamming_best2", "pose_lm", "orb_detect"}
+    assert set(ck.LAUNCHES) == {"masked_hamming_best2", "pose_lm", "orb_detect",
+                                "orb_describe", "ba_dense_terms"}
 
 
 def test_detect_level_is_detect_levels_of_one():
@@ -385,6 +414,172 @@ def test_detect_level_is_detect_levels_of_one():
     ref = orb.detect_level_plain(img, 62)
     for a, b in zip(one, ref):
         np.testing.assert_array_equal(N(a), N(b))
+
+
+# ---------------------------------------------------------------------------
+# ORB descriptors
+# ---------------------------------------------------------------------------
+
+DESCRIBE_CASES = {  # image, (h, w), levels, features
+    "textured 240x320 4 levels": ("textured", (240, 320), 4, 512),
+    "quantized stereo 185x613 3 levels": ("quantized", (185, 613), 3, 1024),
+    "integer 134x179 1 level": ("quantized", (134, 179), 1, 200),
+}
+
+
+def describe_args(pyr, counts):
+    """describe()'s arguments from the detection of ``pyr`` at ``counts``."""
+    yx, _, valid = orb.detect_levels(pyr, counts)
+    lvl = torch.cat([torch.full((c,), l, dtype=torch.int64, device=pyr[0].device)
+                     for l, c in enumerate(counts)])
+    return yx[:, 0], yx[:, 1], lvl, valid
+
+
+def describe_inputs(name, device="cpu"):
+    """A case's pyramid and describe()'s arguments."""
+    kind, (h, w), n_levels, n_feat = DESCRIBE_CASES[name]
+    img = (textured_image if kind == "textured" else quantized_image)(h, w, seed=h + w)
+    pyr = orb.build_pyramid(torch.as_tensor(img, device=device),
+                            orb.pyramid_shapes(h, w, n_levels, 1.2))
+    return pyr, describe_args(pyr, orb.per_level_counts(n_feat, n_levels, 1.2))
+
+
+def assert_describe_agrees(got, ref, valid, angle_tol, share, all_equal=False):
+    """Angles within ``angle_tol`` (a number, or one per keypoint); every
+    valid keypoint whose angle is bit-equal has bit-equal words; at least
+    ``share`` of the valid ones bit-equal (all of them with ``all_equal``);
+    invalid rows zero."""
+    v = N(valid).astype(bool)
+    ga, ra = N(got[0]), N(ref[0])
+    assert (np.abs(ga - ra) <= angle_tol).all(), np.abs(ga - ra).max()
+    same = (N(got[1]) == N(ref[1])).all(1)
+    assert same[v & (ga == ra)].all()
+    assert v.sum() > 50 and same[v].mean() >= (1.0 if all_equal else share)
+    assert (N(got[1])[~v] == 0).all() and (ga[~v] == 0).all()
+
+
+@pytest.mark.parametrize("name", ["planar 240x320 4 levels",
+                                  "quantized stereo 185x613 3 levels"])
+def test_describe_plain_matches_reference(name):
+    """describe_plain on the reference's pyramid against the reference's
+    extract (``tests/test_torch_ops.py::test_orb_on_reference_pyramid``'s
+    frame and bar): angles within 1e-4, >= 99% of the descriptors
+    bit-equal, and bit-equal wherever the angles are."""
+    jnp, jorb, _ = jax_ref()
+    if name.startswith("planar"):  # test_torch_ops.py's frame
+        from orbslam2_with_quadrics_tpu.utils import synthetic as jsyn
+
+        img = np.asarray(jsyn.planar_sequence(n_frames=2, h=240, w=320, fx=260.0, fy=260.0,
+                                              seed=3)[0][1], np.float32)
+        (h, w), n_levels, n_feat = img.shape, 4, 512
+    else:
+        kind, (h, w), n_levels, n_feat = DESCRIBE_CASES[name]
+        img = quantized_image(h, w, seed=h + w)
+    jpyr = jorb.build_pyramid(jnp.asarray(img), jorb.pyramid_shapes(h, w, n_levels, 1.2))
+    ref = jorb.extract(jnp.asarray(img), n_features=n_feat, n_levels=n_levels)
+    pyr = [torch.tensor(np.asarray(p)) for p in jpyr]
+    args = describe_args(pyr, orb.per_level_counts(n_feat, n_levels, 1.2))
+    np.testing.assert_array_equal(N(args[3]), np.asarray(ref.valid))
+    got = orb.describe_plain(pyr, *args)
+    ref_desc = torch.as_tensor(np.asarray(ref.desc).view(np.int32))
+    assert_describe_agrees(got, (torch.as_tensor(np.asarray(ref.angle)), ref_desc), args[3],
+                           1e-4, 0.99)
+
+
+def describe_kernel_model(pyr, kp_y, kp_x, lvl_ids, valid):
+    """CPU model of ``csrc/orb_describe.cu``: the 37x37 patch read from the
+    keypoint's own level (0 outside it) at the start clamped into level 0's
+    extent; the moments summed as the block sums them (thread t over the
+    indices t, t + 256, ..., the warp's xor butterfly, then the 8 warps in
+    order, in float64, then rounded to float32); the vertical then
+    horizontal blur of the 31x31 centre; each test's two rotated taps; the
+    words as warp ballots."""
+    imgs = [N(p) for p in pyr]
+    h0, w0 = imgs[0].shape
+    ok = N(valid).astype(bool)
+    y = np.where(ok, N(kp_y), 19)
+    x = np.where(ok, N(kp_x), 19)
+    lvl = N(lvl_ids)
+    n = len(y)
+    y0, x0 = np.clip(y - 18, 0, h0 - 37), np.clip(x - 18, 0, w0 - 37)
+    raw = np.zeros((n, 37, 37), np.float32)
+    for k in range(n):
+        patch = imgs[lvl[k]][y0[k]:y0[k] + 37, x0[k]:x0[k] + 37]
+        raw[k, :patch.shape[0], :patch.shape[1]] = patch
+    i = np.arange(961)
+    dy, dx = i // 31 - 15, i % 31 - 15
+    circ = dy * dy + dx * dx <= 225
+    centre = raw[:, 3:34, 3:34].reshape(n, 961).astype(np.float64)
+    parts = [np.zeros((n, 256)) for _ in range(2)]
+    for j in range(0, 961, 256):
+        idx = np.minimum(j + np.arange(256), 960)
+        take = circ[idx] & (j + np.arange(256) < 961)
+        for part, d in zip(parts, (dy, dx)):
+            part[:] = np.where(take, part + d[idx] * centre[:, idx], part)
+
+    def block_sum(part):
+        v = part.reshape(n, 8, 32)
+        lanes = np.arange(32)
+        for off in (16, 8, 4, 2, 1):
+            v = v + v[:, :, lanes ^ off]
+        s = v[:, 0, 0]
+        for w in range(1, 8):
+            s = s + v[:, w, 0]
+        return torch.as_tensor(s).to(torch.float32)
+
+    m01, m10 = (block_sum(p) for p in parts)
+    ang = torch.where(torch.as_tensor(ok), torch.atan2(m01, m10), 0.0)
+    k = orb._gauss7(2.0)
+    r = torch.as_tensor(raw)
+    band = r[:, 0:31, :] * float(k[0])
+    for t in range(1, 7):
+        band = band + r[:, t:t + 31, :] * float(k[t])
+    blur = band[:, :, 0:31] * float(k[0])
+    for t in range(1, 7):
+        blur = blur + band[:, :, t:t + 31] * float(k[t])
+    pat = torch.as_tensor(orb.brief_pattern())
+    ca, sa = torch.cos(ang)[:, None], torch.sin(ang)[:, None]
+    px, py = pat[None, :, 0], pat[None, :, 1]
+    ox = torch.clamp(torch.round(px * ca - py * sa).to(torch.int64) + 15, 0, 30)
+    oy = torch.clamp(torch.round(px * sa + py * ca).to(torch.int64) + 15, 0, 30)
+    vals = blur[torch.arange(n)[:, None], oy, ox]
+    bits = N(vals[:, 0::2] < vals[:, 1::2]).reshape(n, 8, 32).astype(np.uint64)
+    words = (bits << np.arange(32, dtype=np.uint64)).sum(-1).astype(np.uint32).view(np.int32)
+    return ang, torch.as_tensor(np.where(ok[:, None], words, 0))
+
+
+def angle_f64(pyr, kp_y, kp_x, lvl_ids, valid):
+    """Each keypoint's angle from its moments summed in float64 (numpy)."""
+    imgs = [N(p).astype(np.float64) for p in pyr]
+    h0, w0 = imgs[0].shape
+    ok = N(valid).astype(bool)
+    y0 = np.clip(np.where(ok, N(kp_y), 19) - 18, 0, h0 - 37) + 3
+    x0 = np.clip(np.where(ok, N(kp_x), 19) - 18, 0, w0 - 37) + 3
+    W = orb._moment_weights().astype(np.float64)
+    out = np.zeros(len(ok))
+    for k, (l, y, x) in enumerate(zip(N(lvl_ids), y0, x0)):
+        c = np.zeros((31, 31))
+        patch = imgs[l][y:y + 31, x:x + 31]
+        c[:patch.shape[0], :patch.shape[1]] = patch
+        m = c.reshape(-1) @ W
+        out[k] = np.arctan2(m[0], m[1]) if ok[k] else 0.0
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(DESCRIBE_CASES))
+def test_describe_kernel_model_matches_plain(name):
+    pyr, args = describe_inputs(name)
+    got = describe_kernel_model(pyr, *args)
+    ref = orb.describe_plain(pyr, *args)
+    a64 = angle_f64(pyr, *args)
+    # the model's moments are float64 sums rounded once: within 1e-6 rad of
+    # the float64 angle; the plain version's float32 matmul is up to 3.5e-5
+    # rad off it on these cases, so the two agree to 1e-5 plus that error.
+    # Exact float32 sums on the one-level integer image: all equal there
+    v = N(args[3]).astype(bool)
+    assert (np.abs(N(got[0]) - a64)[v] <= 1e-6).all()
+    assert_describe_agrees(got, ref, args[3], 1e-5 + np.abs(N(ref[0]) - a64), 0.99,
+                           all_equal=name.startswith("integer"))
 
 
 # ---------------------------------------------------------------------------
@@ -457,3 +652,20 @@ def test_orb_detect_matches_plain_on_card(cuda_device, name):
     for g, r in zip(got, ref):
         assert g.dtype == r.dtype and g.shape == r.shape
         assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(DESCRIBE_CASES))
+def test_orb_describe_matches_plain_on_card(cuda_device, name):
+    pyr, args = describe_inputs(name, device=cuda_device)
+    before = ck.LAUNCHES["orb_describe"]
+    got = orb.describe(pyr, *args)
+    assert ck.LAUNCHES["orb_describe"] == before + 1
+    ref = orb.describe_plain(pyr, *args)
+    a64 = angle_f64(pyr, *args)
+    v = N(args[3]).astype(bool)
+    assert (np.abs(N(got[0]) - a64)[v] <= 1e-6).all()
+    assert_describe_agrees(got, ref, args[3], 1e-5 + np.abs(N(ref[0]) - a64), 0.995,
+                           all_equal=name.startswith("integer"))
+    again = orb.describe(pyr, *args)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
