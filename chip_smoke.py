@@ -10,7 +10,9 @@ Phases (any failure exits non-zero before the result line):
   3. each kernel against its plain PyTorch version on the card at the main
      path's shapes: the Hamming kernel bit-exact (single and batched, tie /
      all-masked / ragged cases); ``pose_lm`` at stage A's 2 x 3 and stage
-     B's 4 x 5 schedules, 1024 mono and 2048 stereo rows, 0-2 valid rows
+     B's 4 x 5 schedules, 1024 mono and 2048 stereo rows (each timed with
+     its time a dependent link, ``lm_links``), 3000 rows (past the 2048 it
+     keeps in registers), 0-2 valid rows
      and points behind the camera (the pose within 1e-4, masks equal but for
      rows within 1e-3 of their gate; fewer than 3 valid rows within 1e-3
      and 1e-2 px on their reprojections); ``orb_detect`` bit-exact at
@@ -38,7 +40,8 @@ Phases (any failure exits non-zero before the result line):
      from a float64 evaluation than 1e-5 + 4x the plain version's own
      distance; the schedule through the kernels against it through the
      plain version (poses within 1e-4, cost within 1e-3 relative); the
-     terms of one LM step timed as the kernels above; after
+     terms of one LM step timed as the kernels above, each of its three
+     launches (terms, slots, cost) on its own by the profiler; after
      the quadric path, ``quadric_ba_solve`` at its edge count, timed;
   5. the port's paths through ``System``, every map tensor on the card, each
      over a synthetic sequence, checked against ground truth, with the
@@ -131,6 +134,7 @@ import importlib.util
 import json
 import multiprocessing
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -193,9 +197,10 @@ def graph_kernel_ms(fn, launches: int = 20, reps: int = 20) -> float:
     return cuda_median_ms(graph.replay, reps=reps) / launches
 
 
-def profiler_kernel_ms(fn, name: str, launches: int = 20):
-    """Mean device time of the kernels whose name contains ``name`` over
-    ``launches`` calls of ``fn``, from torch.profiler (None if it saw none)."""
+def profiler_kernels_ms(fn, name: str, launches: int = 20) -> dict:
+    """{kernel: mean device ms of one launch} of the kernels whose name
+    contains ``name`` over ``launches`` calls of ``fn``, from torch.profiler,
+    keyed by the kernel's function name."""
     from torch.autograd import DeviceType
 
     fn()
@@ -205,8 +210,13 @@ def profiler_kernel_ms(fn, name: str, launches: int = 20):
         for _ in range(launches):
             fn()
         torch.cuda.synchronize()
-    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA and name in e.name]
-    return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / len(ev) if ev else None
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and name in e.name:
+            key = re.search(r"(\w+)\(", e.name + "(").group(1)
+            n, ms = out.get(key, (0, 0.0))
+            out[key] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    return {k: ms / n for k, (n, ms) in out.items()}
 
 
 # NVIDIA H100 SXM data sheet: 3.35 TB/s of HBM; 67 TFLOP/s of fp32 outside
@@ -414,9 +424,9 @@ def phase_kernels(smi):
     log(f"[kernel] launch floor 1x1: kernel_ms "
         f"{graph_kernel_ms(lambda: ck.masked_hamming_best2(*tiny)):.5f} ({smi})")
     args_b = cases[1][1]
-    prof = profiler_kernel_ms(lambda: ck.masked_hamming_best2(*args_b), "masked_hamming_best2")
+    prof = profiler_kernels_ms(lambda: ck.masked_hamming_best2(*args_b), "masked_hamming_best2")
     log(f"[kernel] main-B 4096x1024: torch.profiler by kernel name "
-        f"{'no device events' if prof is None else f'{prof:.5f} ms per launch'} ({smi})")
+        f"{json.dumps(prof) if prof else 'no device events'} (ms per launch) ({smi})")
     return max_err, times
 
 
@@ -547,6 +557,16 @@ def lm_instructions(args, rounds: int, iters: int) -> int:
     return total
 
 
+def lm_links(rounds: int, iters: int) -> int:
+    """pose_lm's dependent links: per LM evaluation (the first of a round
+    and one per step) its block-wide reduction and the serial solve after
+    it, and each round's chi2 pass: 2 rounds (iters + 1) + rounds. The
+    kernel's time over this count is its time a link, the number to hold
+    against a barrier plus a shuffle tree (its operation bound means
+    nothing for a chain this short)."""
+    return 2 * rounds * (iters + 1) + rounds
+
+
 def lm_near_gate(T, args):
     """Rows whose chi2 at pose T lies within 1e-3 relative of their gate."""
     from orbslam2_with_quadrics_tpu_torch.ops import lie, pose_opt, residuals
@@ -571,6 +591,31 @@ def lm_reproj_diff(Ta, Tb, args) -> float:
     return float(torch.abs(pa - pb)[keep].max()) if bool(keep.any()) else 0.0
 
 
+def time_pose_lm(name, args, rounds, iters, smi):
+    """``pose_lm`` on the card at these inputs: ``kernel_ms`` (graph replay
+    of 20 launches), ``call_ms``, ``plain_ms``, ``bound_ms`` and the time a
+    dependent link (``lm_links``)."""
+    from orbslam2_with_quadrics_tpu_torch.ops import pose_opt
+
+    n = args[3].shape[0]
+    nbytes = sum(a.numel() * a.element_size() for a in args if torch.is_tensor(a))
+    nbytes += 7 * 4 + n + 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = lm_instructions(args, rounds, iters) / FP32_OPS_PER_S * 1e3
+    fn = lambda: pose_opt.pose_optimization(*args, rounds=rounds, iters=iters)  # noqa: E731
+    t = {"kernel_ms": graph_kernel_ms(fn), "call_ms": cuda_median_ms(fn),
+         "plain_ms": cuda_median_ms(lambda: pose_opt.pose_optimization_plain(
+             *args, rounds=rounds, iters=iters), reps=5, warmup=1),
+         "bound_ms": max(t_bytes, t_ops),
+         "bound_by": "bytes" if t_bytes > t_ops else "operations"}
+    t["link_us"] = 1e3 * t["kernel_ms"] / lm_links(rounds, iters)
+    log(f"[kernel] pose_lm {name}: kernel_ms {t['kernel_ms']:.5f} (graph replay of 20), "
+        f"call_ms {t['call_ms']:.5f}, plain_ms {t['plain_ms']:.4f}, bound_ms "
+        f"{t['bound_ms']:.6f} by {t['bound_by']}; {t['link_us']:.3f} us a link "
+        f"({lm_links(rounds, iters)} dependent links) ({smi})")
+    return t
+
+
 def quantized_frame(h, w, seed, levels=5):
     """A blocky texture quantized to a few grey levels: ties everywhere."""
     rng = np.random.RandomState(seed)
@@ -582,7 +627,8 @@ def quantized_frame(h, w, seed, levels=5):
 def phase_frame_kernels(smi, device="cuda"):
     """The main path's two frame kernels against their plain versions on the
     card: ``pose_lm`` at stage A's 2 x 3 and stage B's 4 x 5 schedules, N =
-    1024 mono and N = 2048 stereo rows, and the degenerate cases (0, 1, 2
+    1024 mono and N = 2048 stereo rows, N = 3000 (rows past those the kernel
+    keeps in registers), and the degenerate cases (0, 1, 2
     valid rows; points at or behind the camera; damped systems that are
     indefinite, whose steps both reject): the pose within 1e-4, the
     inlier masks equal but for rows within 1e-3 of their gate, n_inliers
@@ -617,6 +663,8 @@ def phase_frame_kernels(smi, device="cuda"):
         ("points behind 20%", lm_case(1024, 208, behind=0.2, dev=device), (4, 5), False),
         ("indefinite (a row of weight -1)", lm_case(1024, 209, n_valid=3, weight=-1.0,
                                                     dev=device), (2, 3), False),
+        ("3000 rows (past the registers)", lm_case(3000, 210, stereo=0.3, dev=device), (4, 5),
+         False),
     ]
     max_err, times = 0.0, {}
     for name, args, (rounds, iters), timed in lm_cases:
@@ -645,21 +693,7 @@ def phase_frame_kernels(smi, device="cuda"):
         if not (err <= tol and (not few or px <= 1e-2) and off_gate == 0 and dn <= n_diff):
             raise AssertionError(f"pose_lm disagrees with its plain version on {name}")
         if timed and cuda:
-            n = args[3].shape[0]
-            nbytes = sum(a.numel() * a.element_size() for a in args if torch.is_tensor(a))
-            nbytes += 7 * 4 + n + 4
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = lm_instructions(args, rounds, iters) / FP32_OPS_PER_S * 1e3
-            fn = lambda: pose_opt.pose_optimization(*args, rounds=rounds, iters=iters)  # noqa: E731
-            t = {"kernel_ms": graph_kernel_ms(fn), "call_ms": cuda_median_ms(fn),
-                 "plain_ms": cuda_median_ms(lambda: pose_opt.pose_optimization_plain(
-                     *args, rounds=rounds, iters=iters), reps=5, warmup=1),
-                 "bound_ms": max(t_bytes, t_ops),
-                 "bound_by": "bytes" if t_bytes > t_ops else "operations"}
-            times[name] = t
-            log(f"[kernel] pose_lm {name}: kernel_ms {t['kernel_ms']:.5f} (graph replay of 20), "
-                f"call_ms {t['call_ms']:.5f}, plain_ms {t['plain_ms']:.4f}, bound_ms "
-                f"{t['bound_ms']:.6f} by {t['bound_by']} ({smi})")
+            times[name] = time_pose_lm(name, args, rounds, iters, smi)
     out["pose_lm"] = (max_err, times)
     # ---- orb_detect
     img_m = synthetic.planar_sequence(n_frames=1, h=480, w=640, fx=520.0, fy=520.0,
@@ -1247,7 +1281,7 @@ def launch_checks(launches: dict, n_calls: dict):
     search or bare match; pose_lm: exactly 2 per tracked frame and 1 per
     bare pose_optimization call; orb_detect: exactly 1 per image;
     orb_describe: exactly 1 per ``orb.extract`` call (an image);
-    ba_dense_terms: exactly 3 per dense LM step (the terms pass, the point
+    ba_dense_terms: exactly 3 per dense LM step (the terms pass, the slot
     pass, the cost at the candidate) and 1 per dense solve (the cost at its
     start), two solves per local BA (every local BA on the card takes the
     dense schedule), and launched wherever a mapping pass ran. The frame
@@ -2161,6 +2195,106 @@ def in_float64(prob):
                           for x in prob])
 
 
+def dense_terms_bound(prob, ploc, grid, L):
+    """(bound ms, what bounds it, counts) of one dense LM step's terms (the
+    terms and slot passes and the cost at a candidate) on these inputs:
+    each call reads 32 B per edge (point index, observation, stereo flag,
+    weight, validity), the poses and the points it refers to; the terms
+    call also the slots (8 B per edge) and writes the camera blocks, the
+    dense V and VH [C, L, 6, 3] and the point blocks (60 B per slot); the
+    operations of ``BA_*_OPS`` for this run's valid edges, observed slots
+    and (camera, slot) pairs."""
+    C, N = grid
+    dev = prob.points.device
+    valid = prob.valid > 0
+    n_edges = int(valid.sum())
+    n_pts = int(torch.unique(prob.pnt_idx[valid]).numel())
+    local = ploc < L
+    slots = int(torch.unique(ploc[local]).numel())
+    pairs = int(torch.unique((torch.arange(C, device=dev)[:, None] * L + ploc)[local]).numel())
+    E = C * N
+    nbytes = (2 * (32 * E + 28 * C + 16 * n_pts) + 8 * E + 4 * C + 168 * C
+              + 2 * 72 * C * L + 60 * L + 8)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (n_edges * (BA_TERMS_OPS_PER_EDGE + BA_COST_OPS_PER_EDGE)
+             + slots * BA_SLOT_OPS + pairs * BA_PAIR_OPS) / FP32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations",
+            {"n_edges": n_edges, "slots": slots, "pairs": pairs})
+
+
+def time_dense_terms(prob, index, grid, L, smi):
+    """One dense LM step's terms on the card at these inputs (``index`` the
+    point-major edge index; the bare [C, N] slots where a checkout from
+    before that index is timed, which ``scripts/ab_kernels.py`` does):
+    ``kernel_ms`` (graph replay of 20 steps, 3 launches each), each launch's
+    own device time (torch.profiler), ``call_ms``, ``plain_ms``,
+    ``bound_ms``, the cost alone, the launches of one step and one whole
+    ``_dense_schur_step`` (events around the call)."""
+    from orbslam2_with_quadrics_tpu_torch.ops import ba, residuals
+    from orbslam2_with_quadrics_tpu_torch.ops import cuda_kernels as ck
+
+    C, N = grid
+    dev = prob.points.device
+    lam = torch.full((), 1e-4, device=dev)
+    d2 = residuals.CHI2_STEREO
+    loc_ids = torch.arange(L, device=dev)
+
+    def step_terms(fn):
+        return (fn(prob, prob.poses, prob.points, d2, grid, lam=lam, ploc=index, n_local=L),
+                fn(prob, prob.poses, prob.points, d2, grid))
+
+    n0 = ck.LAUNCHES["ba_dense_terms"]
+    step_terms(ba.dense_terms)
+    launches = ck.LAUNCHES["ba_dense_terms"] - n0
+    bound, by, counts = dense_terms_bound(prob, getattr(index, "ploc", index), grid, L)
+    k = {"kernel_ms": graph_kernel_ms(lambda: step_terms(ba.dense_terms)),
+         "call_ms": cuda_median_ms(lambda: step_terms(ba.dense_terms)),
+         "plain_ms": cuda_median_ms(lambda: step_terms(ba.dense_terms_plain), reps=10),
+         "bound_ms": bound, "bound_by": by, "launches_per_step": launches,
+         "cost_kernel_ms": graph_kernel_ms(lambda: ba.dense_terms(
+             prob, prob.poses, prob.points, d2, grid)),
+         "launch_ms": profiler_kernels_ms(lambda: step_terms(ba.dense_terms), "ba_dense"),
+         "schur_step_call_ms": cuda_median_ms(lambda: ba._dense_schur_step(
+             prob, prob.poses, prob.points, lam, d2, loc_ids, index, grid)), **counts}
+    log(f"[kernel] ba_dense_terms one LM step's terms (C = {C}, N = {N}, L = {L}; "
+        f"{counts['n_edges']} valid edges, {counts['slots']} local slots observed, "
+        f"{counts['pairs']} camera-slot pairs): kernel_ms {k['kernel_ms']:.5f} (graph replay "
+        f"of 20 steps; {launches} launches each: "
+        f"{json.dumps({n: round(v, 5) for n, v in k['launch_ms'].items()})} by the profiler; "
+        f"the cost alone {k['cost_kernel_ms']:.5f}), call_ms {k['call_ms']:.5f}, plain_ms "
+        f"{k['plain_ms']:.4f}, bound_ms {k['bound_ms']:.6f} by {k['bound_by']}; one "
+        f"_dense_schur_step {k['schur_step_call_ms']:.4f} ms ({smi})")
+    return k
+
+
+def mono_window(mono):
+    """(prob0, (C, N), L, cam_ok): the local-BA problem of the last
+    keyframe's window of the mono path's map (``run_main_path("mono")``'s
+    result), as ``local_ba_problem`` builds it, its free poses and points
+    moved off the optimum from a seed; its edge grid, its local slots and
+    which of its keyframe slots are live."""
+    from orbslam2_with_quadrics_tpu_torch.models import local_mapping as lm
+    from orbslam2_with_quadrics_tpu_torch.ops import lie
+
+    slam = mono["slam"]
+    m = slam.map
+    dev = m.pt_pos.device
+    slot = torch.tensor(slam.ref_kf, device=dev)
+    prob0, _, cam_ok, g_obs, _ = lm.local_ba_problem(
+        m, slot, slam._K, float(slam.cfg.frontend.bf), slam._inv_sigma2,
+        window=slam.cfg.local_ba_window)
+    C, N = g_obs.shape
+    P = m.pt_pos.shape[0]
+    g = torch.Generator(device=dev).manual_seed(0)
+    free_c = (1.0 - prob0.fixed_cam)[:, None]
+    free_p = (1.0 - prob0.fixed_pnt)[:, None]
+    prob0 = prob0._replace(
+        poses=lie.se3_retract(prob0.poses, 2e-3 * free_c * torch.randn(
+            (C, 6), generator=g, device=dev)),
+        points=prob0.points + 5e-3 * free_p * torch.randn((P, 3), generator=g, device=dev))
+    return prob0, (C, N), min(P, 8192), cam_ok
+
+
 def phase_dense_ba(mono, smi):
     """Local BA's two solvers on the card, on the last keyframe's window of
     the mono path's map (the free poses and points moved off the optimum
@@ -2179,30 +2313,15 @@ def phase_dense_ba(mono, smi):
     pass and the cost at a candidate: 3 launches) timed as the frame
     kernels are. Returns the timings."""
     from orbslam2_with_quadrics_tpu_torch.models import local_mapping as lm
-    from orbslam2_with_quadrics_tpu_torch.ops import ba, lie, residuals
+    from orbslam2_with_quadrics_tpu_torch.ops import ba
 
-    slam = mono["slam"]
-    m = slam.map
-    dev = m.pt_pos.device
-    slot = torch.tensor(slam.ref_kf, device=dev)
-    prob0, _, cam_ok, g_obs, _ = lm.local_ba_problem(
-        m, slot, slam._K, float(slam.cfg.frontend.bf), slam._inv_sigma2,
-        window=slam.cfg.local_ba_window)
-    C, N = g_obs.shape
-    P = m.pt_pos.shape[0]
-    L = min(P, 8192)
-    g = torch.Generator(device=dev).manual_seed(0)
-    free_c = (1.0 - prob0.fixed_cam)[:, None]
-    free_p = (1.0 - prob0.fixed_pnt)[:, None]
-    prob0 = prob0._replace(
-        poses=lie.se3_retract(prob0.poses, 2e-3 * free_c * torch.randn(
-            (C, 6), generator=g, device=dev)),
-        points=prob0.points + 5e-3 * free_p * torch.randn((P, 3), generator=g, device=dev))
+    prob0, (C, N), L, cam_ok = mono_window(mono)
+    P = prob0.points.shape[0]
     _, inl = ba.edge_chi2(prob0)
     held = prob0.fixed_cam.clone()
     held[torch.nonzero(held < 0.5)[0, 0]] = 1.0
     prob = prob0._replace(valid=prob0.valid * inl.to(torch.float32), fixed_cam=held)
-    loc_ids, ploc = ba._local_point_table(prob, L, (C, N))
+    loc_ids, _ = ba._local_point_index(prob, L, (C, N))
     n_local = int((loc_ids < P).sum())
     pcg, c_pcg = ba.ba_solve(prob, n_iters=6, cg_iters=40, use_huber=False)
     den, c_den = ba.ba_solve_dense(prob, n_iters=6, n_local_pts=L, use_huber=False,
@@ -2264,6 +2383,9 @@ def phase_dense_ba(mono, smi):
         f"{json.dumps({k: v for k, v in worst.items() if not k.endswith('float64')})}; "
         f"Hpi, Hpib, VH from a float64 evaluation [kernel, plain] "
         f"{json.dumps({k: v for k, v in worst.items() if k.endswith('float64')})}")
+    for i, (d, ok) in enumerate(steps):
+        if not ok:
+            log(f"[kernel] ba_dense_terms call {i} off the bars: {json.dumps(d)}")
     if n_bad:
         raise AssertionError(f"ba_dense_terms disagrees with its plain version on {n_bad} calls")
     sk, ck_cost = lm._dense_schedule(held0, (C, N), 4, 6)
@@ -2278,41 +2400,8 @@ def phase_dense_ba(mono, smi):
                              f"{dpose}, cost {dcost}")
 
     # one LM step's terms at the path's shapes: timed, and its bound
-    lam = torch.full((), 1e-4, device=dev)
-    d2 = residuals.CHI2_STEREO
-    _, ploc0 = ba._local_point_table(prob0, L, (C, N))
-
-    def step_terms(fn):
-        return (fn(prob0, prob0.poses, prob0.points, d2, (C, N), lam=lam, ploc=ploc0,
-                   n_local=L), fn(prob0, prob0.poses, prob0.points, d2, (C, N)))
-
-    valid = prob0.valid > 0
-    n_edges = int(valid.sum())
-    n_pts = int(torch.unique(prob0.pnt_idx[valid]).numel())
-    local = ploc0 < L
-    slots = int(torch.unique(ploc0[local]).numel())
-    pairs = int(torch.unique((torch.arange(C, device=dev)[:, None] * L + ploc0)[local]).numel())
-    E = C * N
-    # each call reads 32 B per edge (point index, observation, stereo flag,
-    # weight, validity), the poses and the points it refers to; the terms
-    # call also the slots (8 B per edge) and writes the camera blocks, the
-    # dense V and VH [C, L, 6, 3] and the point blocks (60 B per slot)
-    nbytes = (2 * (32 * E + 28 * C + 16 * n_pts) + 8 * E + 4 * C + 168 * C
-              + 2 * 72 * C * L + 60 * L + 8)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (n_edges * (BA_TERMS_OPS_PER_EDGE + BA_COST_OPS_PER_EDGE)
-             + slots * BA_SLOT_OPS + pairs * BA_PAIR_OPS) / FP32_OPS_PER_S * 1e3
-    k = {"kernel_ms": graph_kernel_ms(lambda: step_terms(ba.dense_terms)),
-         "call_ms": cuda_median_ms(lambda: step_terms(ba.dense_terms)),
-         "plain_ms": cuda_median_ms(lambda: step_terms(ba.dense_terms_plain), reps=10),
-         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes > t_ops else "operations",
-         "cost_kernel_ms": graph_kernel_ms(lambda: ba.dense_terms(
-             prob0, prob0.poses, prob0.points, d2, (C, N)))}
-    log(f"[kernel] ba_dense_terms one LM step's terms (C = {C}, N = {N}, L = {L}; {n_edges} "
-        f"valid edges, {slots} local slots observed, {pairs} camera-slot pairs): kernel_ms "
-        f"{k['kernel_ms']:.5f} (graph replay of 20 steps; 3 launches each, the cost alone "
-        f"{k['cost_kernel_ms']:.5f}), call_ms {k['call_ms']:.5f}, plain_ms {k['plain_ms']:.4f}, "
-        f"bound_ms {k['bound_ms']:.6f} by {k['bound_by']} ({smi})")
+    _, index0 = ba._local_point_index(prob0, L, (C, N))
+    k = time_dense_terms(prob0, index0, (C, N), L, smi)
     t["ba_dense_terms"] = {"mono window": k}
     t["ba_dense_terms_err"] = max(worst[f] for f in ("Hcc_d", "cost", "V"))
     return t

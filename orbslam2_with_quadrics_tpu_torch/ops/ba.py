@@ -219,28 +219,44 @@ def ba_problem_from_numpy(src, device="cpu") -> BAProblem:
 # The edge table is cam-major [C, N] (camera c's edges are one row, as every
 # caller gathers it from the [K, N] observation table). Per-edge Jacobians
 # are [C, N, 3, 6] / [C, N, 3, 3] blocks; the points that couple cameras are
-# compacted into L local slots once per solve, and the per-point blocks
-# (Hpp, bp, the coupling V [C, L, 6, 3]) are index_add sums into L + 1 slots
-# (slot L collects the edges of points that are not local and is dropped).
+# compacted into L local slots once per solve, with a point-major index of
+# the edges (``LocalEdges``), and the per-point blocks (Hpp, bp, the coupling
+# V [C, L, 6, 3]) are sums into the L slots (the plain version index_adds
+# into L + 1 and drops slot L, which collects the edges of points that are
+# not local; the kernels sum each slot's segment of the index).
 # S = Hcc - V Hpp^-1 V^T is one [6C, 3L] @ [3L, 6C] product and is solved by
 # Cholesky: a local window has <= ~50 cameras, so S is at most ~300 x 300.
 # ---------------------------------------------------------------------------
 
 
-def _local_point_table(prob: BAProblem, n_local_pts: int, cam_grid):
+class LocalEdges(NamedTuple):
+    """A solve's local edges in point-major order, built once per solve by
+    :func:`_local_point_index` beside the slots: the edges of slot s are
+    ``order[offsets[s]:offsets[s + 1]]``, in flat edge order (``c * N + n``,
+    so camera order) inside a slot; the edges of no local slot come last."""
+
+    ploc: torch.Tensor     # [C, N] int64 local slot of each edge's point (L: none)
+    order: torch.Tensor    # [C N] int64 flat edge ids, the local ones by slot first
+    offsets: torch.Tensor  # [L + 1] int32 each slot's first place in ``order``
+    pos: torch.Tensor      # [C N] int32 each local edge's place in ``order``, -1 if none
+
+
+def _local_point_index(prob: BAProblem, n_local_pts: int, cam_grid):
     """The L smallest point ids that couple cameras (a valid edge, a free
     point) in L local slots. Points past them are treated as fixed this
     solve: they keep their residuals and camera terms but get no coupling,
-    no right-hand side and no update. Sort, first occurrences and a running
-    count (no host read). Returns (loc_ids [L], point id or P for an empty
-    slot; ploc [C, N], the local slot of each edge's point, L = none)."""
+    no right-hand side and no update. A stable sort of the tagged ids, first
+    occurrences and a running count (no host read); the sort's permutation
+    is the point-major edge index, and the running count its offsets.
+    Returns (loc_ids [L], point id or P for an empty slot; the
+    :class:`LocalEdges`)."""
     C, N = cam_grid
     P = prob.points.shape[0]
     L = n_local_pts
     dev = prob.points.device
     eligible = (prob.valid > 0) & (prob.fixed_pnt[prob.pnt_idx] < 0.5)
     tagged = torch.where(eligible, prob.pnt_idx, P)
-    ts, _ = torch.sort(tagged)
+    ts, order = torch.sort(tagged, stable=True)
     first = torch.ones_like(ts, dtype=torch.bool)
     first[1:] = ts[1:] != ts[:-1]
     rank = torch.cumsum(first, 0) - 1
@@ -250,7 +266,13 @@ def _local_point_table(prob: BAProblem, n_local_pts: int, cam_grid):
     slot = torch.arange(L, device=dev)
     loc_of = torch.full((P + 1,), L, dtype=torch.int64, device=dev).scatter(
         0, loc_ids, torch.where(loc_ids < P, slot, L))
-    return loc_ids, loc_of[tagged].reshape(C, N)
+    # the slot of each sorted edge, L past the local ones: it never falls
+    sorted_slot = torch.where((ts < P) & (rank < L), rank, L)
+    offsets = torch.searchsorted(sorted_slot, torch.arange(L + 1, device=dev)).to(torch.int32)
+    place = torch.arange(C * N, dtype=torch.int32, device=dev)
+    pos = torch.empty_like(place).scatter_(0, order, torch.where(sorted_slot < L, place, -1))
+    return loc_ids, LocalEdges(loc_of[tagged].reshape(C, N), order, offsets, pos)
+
 
 
 def _grid_chi2(prob: BAProblem, e, z, cam_grid):
@@ -282,8 +304,11 @@ def _inv3x3(A):
     return adj * idet[..., None, None]
 
 
-# the terms kernel sorts a camera's edges in shared memory: N <= 8192
+# the terms pass spreads a camera's edges over blocks of 256: N <= 8192
+# keeps a camera to 32 blocks
 _MAX_TERMS_EDGES = 8192
+# the slot pass writes V and VH a tile of 16 slots at a time
+_SLOT_TILE = 16
 
 
 class DenseTerms(NamedTuple):
@@ -303,7 +328,9 @@ class DenseTerms(NamedTuple):
 def dense_terms_plain(prob: BAProblem, poses, points, huber_delta2: float, cam_grid,
                       lam=None, ploc=None, n_local: int = 0):
     """Plain PyTorch version of :func:`dense_terms` (the CPU route, and what
-    the kernels are held against on the card)."""
+    the kernels are held against on the card); ``ploc`` the
+    :class:`LocalEdges` of :func:`_local_point_index`, of which it reads the
+    [C, N] slots."""
     C, N = cam_grid
     if ploc is None:  # the robust cost alone
         e, z = residuals.residual_only(poses[:, None, :], prob.K, prob.bf,
@@ -333,6 +360,7 @@ def dense_terms_plain(prob: BAProblem, poses, points, huber_delta2: float, cam_g
     Hcc_d = Hcc + lam * Hcc * eye6 + (1e-8 + prob.fixed_cam)[:, None, None] * eye6
 
     # per-point blocks and the coupling, summed into L + 1 local slots
+    ploc = ploc.ploc
     flat = ploc.reshape(-1)
     Hpp = torch.zeros((L + 1, 3, 3), dtype=dt, device=dev).index_add_(
         0, flat, torch.einsum("cnri,cnrj->cnij", JpW, Jp).reshape(-1, 3, 3))[:L]
@@ -355,12 +383,13 @@ def dense_terms_plain(prob: BAProblem, poses, points, huber_delta2: float, cam_g
 def dense_terms(prob: BAProblem, poses, points, huber_delta2: float, cam_grid,
                 lam=None, ploc=None, n_local: int = 0):
     """The per-edge terms of the cam-major [C, N] edge table at (``poses``,
-    ``points``). With ``ploc`` ([C, N] int64 local slot of each edge's
-    point, ``n_local`` = L meaning none) and the damping ``lam``: a
+    ``points``). With ``ploc`` (the :class:`LocalEdges` of
+    :func:`_local_point_index`, ``n_local`` = L local slots) and the damping
+    ``lam``: a
     :class:`DenseTerms`; without: the robust cost alone (the LM accept
     test). CPU tensors take :func:`dense_terms_plain`; CUDA tensors the
     kernels of ``csrc/ba_dense_terms.cu``: two launches for the terms (the
-    terms pass, then the point pass), one for the cost alone."""
+    terms pass, then the slot pass), one for the cost alone."""
     dev = points.device
     if dev.type == "cpu":
         return dense_terms_plain(prob, poses, points, huber_delta2, cam_grid, lam, ploc,
@@ -374,15 +403,15 @@ def dense_terms(prob: BAProblem, poses, points, huber_delta2: float, cam_grid,
 def _dense_launchers():
     """The three C entry points of ``csrc/ba_dense_terms.cu``, typed once."""
     lib = cuda_kernels.library("ba_dense_terms")
-    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    terms, points, cost = (lib.ba_dense_terms_launch, lib.ba_dense_points_launch,
-                           lib.ba_dense_cost_launch)
-    terms.argtypes = [vp, f32, f32, f32, i32, i32, i32] + [vp] * 7
-    points.argtypes = [vp, vp, f32, i32, i32] + [vp] * 5
-    cost.argtypes = [vp, f32, f32, i32, i32] + [vp] * 4
-    for fn in (terms, points, cost):
+    vp, i32, f32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
+    terms, slots, cost = (lib.ba_dense_terms_launch, lib.ba_dense_slots_launch,
+                          lib.ba_dense_cost_launch)
+    terms.argtypes = [vp, f32, f32, f64, i32, i32] + [vp] * 9
+    slots.argtypes = [vp, vp, vp, vp, f32, i32, i32, i32] + [vp] * 6
+    cost.argtypes = [vp, f32, f64, i32, i32] + [vp] * 4
+    for fn in (terms, slots, cost):
         fn.restype = ctypes.c_int
-    return terms, points, cost
+    return terms, slots, cost
 
 
 def _scalar(x, dev):
@@ -396,6 +425,18 @@ def _scalar(x, dev):
     return 0, float(x)
 
 
+def dense_coupling_buffers(C: int, L: int, device, dtype=torch.float32):
+    """Uninitialized V and VH as the slot pass writes them: the physical
+    layout [C, 6, Lp, 3] (Lp = L rounded up to the slot pass's tile), which
+    is the [6C, 3L] matrix of the S product, handed out as the
+    ``.permute(0, 2, 1, 3)`` views of shape [C, L, 6, 3]. So
+    ``V.permute(0, 2, 1, 3).reshape(6 * C, 3 * L)`` is a view (row stride
+    3 Lp), not a copy."""
+    Lp = -(-L // _SLOT_TILE) * _SLOT_TILE
+    V, VH = torch.empty((2, C, 6, Lp, 3), dtype=dtype, device=device)[:, :, :, :L].unbind(0)
+    return V.permute(0, 2, 1, 3), VH.permute(0, 2, 1, 3)
+
+
 def _dense_terms_cuda(prob, poses, points, huber_delta2, cam_grid, lam, ploc, n_local):
     C, N = cam_grid
     P = points.shape[0]
@@ -406,64 +447,78 @@ def _dense_terms_cuda(prob, poses, points, huber_delta2, cam_grid, lam, ploc, n_
             "inv_sigma2": (prob.inv_sigma2, (E,)), "valid": (prob.valid, (E,)),
             "fixed_cam": (prob.fixed_cam, (C,)), "fixed_pnt": (prob.fixed_pnt, (P,)),
             "pnt_idx": (prob.pnt_idx, (E,))}
+    L = int(n_local)
     if ploc is not None:
-        want["ploc"] = (ploc, (C, N))
+        if not isinstance(ploc, LocalEdges):
+            raise ValueError("dense_terms: the kernels take the point-major edge index "
+                             "(LocalEdges of _local_point_index), not bare slots")
+        want["pos"] = (ploc.pos, (E,))
+        want["offsets"] = (ploc.offsets, (L + 1,))
     t = {}
     for name, (x, shape) in want.items():
-        dtype = torch.int64 if name in ("pnt_idx", "ploc") else torch.float32
+        dtype = {"pnt_idx": torch.int64, "pos": torch.int32,
+                 "offsets": torch.int32}.get(name, torch.float32)
         if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape:
             raise ValueError(f"dense_terms: {name} is {x.dtype} {tuple(x.shape)} on {x.device}, "
                              f"expected {dtype} {shape} on {dev}")
         t[name] = x.contiguous()
     if E == 0:
         raise ValueError(f"dense_terms: an empty edge table {cam_grid}")
+    if N > _MAX_TERMS_EDGES:
+        raise ValueError(f"dense_terms: N = {N} edges per camera beyond the kernels' limit "
+                         f"({_MAX_TERMS_EDGES})")
     bf_ptr, bf = _scalar(prob.bf, dev)
     lam_ptr, lam_val = (0, 0.0) if lam is None else _scalar(lam, dev)
-    ptrs = (ctypes.c_int64 * 13)(
+    ptrs = (ctypes.c_int64 * 12)(
         t["poses"].data_ptr(), t["points"].data_ptr(), t["K"].data_ptr(), bf_ptr,
         t["pnt_idx"].data_ptr(), t["uvr"].data_ptr(), t["is_stereo"].data_ptr(),
         t["inv_sigma2"].data_ptr(), t["valid"].data_ptr(), t["fixed_cam"].data_ptr(),
-        t["fixed_pnt"].data_ptr(), t["ploc"].data_ptr() if ploc is not None else 0, lam_ptr)
+        t["fixed_pnt"].data_ptr(), lam_ptr)
     d2 = float(huber_delta2) if huber_delta2 > 0 else 0.0
     f32 = dict(dtype=torch.float32, device=dev)
+    n_blocks = C * -(-N // 256)  # the terms and cost passes' grid
     cost = torch.empty((), **f32)
-    cost_part = torch.empty(C, **f32)
-    ticket = torch.empty(1, dtype=torch.int32, device=dev)
-    launch_terms, launch_points, launch_cost = _dense_launchers()
+    # per-block partial sums in float64 (28 a block for the terms, 1 for the
+    # cost) and, for the terms, the cameras' costs; C + 1 tickets
+    part = torch.empty(n_blocks * (28 if ploc is not None else 1) + C, dtype=torch.float64,
+                       device=dev)
+    tickets = torch.empty(C + 1, dtype=torch.int32, device=dev)
+    launch_terms, launch_slots, launch_cost = _dense_launchers()
     ctx, index = cuda_kernels.launch_device(dev)
     stream = torch.cuda.current_stream(index).cuda_stream
     if ploc is None:
         with ctx:
-            err = launch_cost(ptrs, bf, d2, C, N, cost.data_ptr(), cost_part.data_ptr(),
-                              ticket.data_ptr(), stream)
+            err = launch_cost(ptrs, bf, d2, C, N, cost.data_ptr(), part.data_ptr(),
+                              tickets.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"ba_dense_terms (cost) launch failed: cudaError {err}")
         cuda_kernels.LAUNCHES["ba_dense_terms"] += 1
         return cost
-    L = int(n_local)
-    if L < 1 or N > _MAX_TERMS_EDGES or L * (1 << (N - 1).bit_length()) >= 2 ** 32 - 1:
-        raise ValueError(f"dense_terms: N = {N} edges per camera and L = {L} local slots "
-                         f"beyond the kernel's limits (N <= {_MAX_TERMS_EDGES}, L N < 2^32)")
+    if L < 1:
+        raise ValueError(f"dense_terms: L = {L} local slots")
     Hcc_d = torch.empty((C, 6, 6), **f32)
     bc = torch.empty((C, 6), **f32)
-    table = torch.empty((C, L + 1, 27), **f32)
+    # each local edge's point side in float64 and its V in float32, in index order
+    rows = torch.empty((E, 28), dtype=torch.float64, device=dev)
+    vrows = torch.empty((E, 20), **f32)
     Hpi = torch.empty((L, 3, 3), **f32)
     bp = torch.empty((L, 3), **f32)
     Hpib = torch.empty((L, 3), **f32)
-    VH = torch.empty((C, L, 6, 3), **f32)
+    V, VH = dense_coupling_buffers(C, L, dev)
     with ctx:
-        err = launch_terms(ptrs, bf, lam_val, d2, C, N, L, Hcc_d.data_ptr(), bc.data_ptr(),
-                           cost.data_ptr(), cost_part.data_ptr(), ticket.data_ptr(),
-                           table.data_ptr(), stream)
+        err = launch_terms(ptrs, bf, lam_val, d2, C, N, t["pos"].data_ptr(), Hcc_d.data_ptr(),
+                           bc.data_ptr(), cost.data_ptr(), part.data_ptr(),
+                           tickets.data_ptr(), rows.data_ptr(), vrows.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"ba_dense_terms (terms) launch failed: cudaError {err}")
         cuda_kernels.LAUNCHES["ba_dense_terms"] += 1
-        err = launch_points(table.data_ptr(), lam_ptr, lam_val, C, L, Hpi.data_ptr(),
-                            bp.data_ptr(), Hpib.data_ptr(), VH.data_ptr(), stream)
+        err = launch_slots(rows.data_ptr(), vrows.data_ptr(), t["offsets"].data_ptr(), lam_ptr,
+                           lam_val, C, L,
+                           V.stride(0) // 18, Hpi.data_ptr(), bp.data_ptr(), Hpib.data_ptr(),
+                           V.data_ptr(), VH.data_ptr(), stream)
         if err != 0:
-            raise RuntimeError(f"ba_dense_terms (points) launch failed: cudaError {err}")
+            raise RuntimeError(f"ba_dense_terms (slots) launch failed: cudaError {err}")
         cuda_kernels.LAUNCHES["ba_dense_terms"] += 1
-    V = table[:, :L, 9:].unflatten(-1, (6, 3))
     return DenseTerms(Hcc_d, bc, cost, V, Hpi, bp, Hpib, VH)
 
 
@@ -484,8 +539,9 @@ def _cholesky_solve_nan(S, g):
 
 def _dense_schur_step(prob: BAProblem, poses, points, lam, huber_delta2: float,
                       loc_ids, ploc, cam_grid, terms=None):
-    """One LM step solving the reduced camera system exactly; ``terms`` is
-    the route of its per-edge terms and its accept test's cost
+    """One LM step solving the reduced camera system exactly; ``ploc`` the
+    :class:`LocalEdges` of :func:`_local_point_index`; ``terms`` is the
+    route of its per-edge terms and its accept test's cost
     (:func:`dense_terms` where None, or :func:`dense_terms_plain`). Returns
     (poses, points, cost, accepted)."""
     C, N = cam_grid
@@ -494,18 +550,19 @@ def _dense_schur_step(prob: BAProblem, poses, points, lam, huber_delta2: float,
     dev, dt = points.device, points.dtype
     t = (terms or dense_terms)(prob, poses, points, huber_delta2, cam_grid, lam=lam, ploc=ploc, n_local=L)
 
-    # S = blockdiag(Hcc_d) - V Hpi V^T; g = bc - V Hpi bp
-    S_cross = (t.VH.permute(0, 2, 1, 3).reshape(6 * C, 3 * L)
-               @ t.V.permute(0, 2, 1, 3).reshape(6 * C, 3 * L).T)
+    # S = blockdiag(Hcc_d) - V Hpi V^T; g = bc - V Hpi bp, over the [6C, 3L]
+    # matrices (views of the kernels' V and VH, which they lay out so)
+    V2 = t.V.permute(0, 2, 1, 3).reshape(6 * C, 3 * L)
+    S_cross = t.VH.permute(0, 2, 1, 3).reshape(6 * C, 3 * L) @ V2.T
     eyeC = torch.eye(C, dtype=dt, device=dev)
     S = (eyeC[:, None, :, None] * t.Hcc_d[:, :, None, :]).reshape(6 * C, 6 * C) - S_cross
-    g = t.bc - torch.einsum("clij,lj->ci", t.V, t.Hpib)
+    g = t.bc - (V2 @ t.Hpib.reshape(3 * L)).reshape(C, 6)
     dc = _cholesky_solve_nan(S + 1e-10 * torch.eye(6 * C, dtype=dt, device=dev),
                              g.reshape(-1)).reshape(C, 6)
     dc = dc * (1.0 - prob.fixed_cam)[:, None]
 
     # back-substitute the local points: dp = Hpi (bp - V^T dc)
-    dp_L = torch.einsum("ljk,lk->lj", t.Hpi, t.bp - torch.einsum("clij,ci->lj", t.V, dc))
+    dp_L = torch.einsum("ljk,lk->lj", t.Hpi, t.bp - (dc.reshape(6 * C) @ V2).reshape(L, 3))
     new_points = points + torch.zeros((P + 1, 3), dtype=dt, device=dev).index_add_(
         0, loc_ids, dp_L)[:P]
     new_poses = lie.se3_retract(poses, dc)
@@ -523,19 +580,21 @@ def ba_solve_dense(prob: BAProblem, n_iters: int = 10, n_local_pts: int = 8192,
     cam-major (``cam_idx`` = arange(C) repeated N times) and is required;
     ``terms`` is the route of the per-edge terms (:func:`dense_terms` where
     None; see :func:`_dense_schur_step`).
-    Returns (prob, final_cost). On the card a solve launches the
-    ``ba_dense_terms`` kernels 3 n_iters + 1 times: the cost at the start,
-    then per step the terms pass, the point pass and the candidate's cost."""
+    Returns (prob, final_cost). The point-major edge index
+    (:func:`_local_point_index`) is built once per solve. On the card a
+    solve launches the ``ba_dense_terms`` kernels 3 n_iters + 1 times: the
+    cost at the start, then per step the terms pass, the slot pass and the
+    candidate's cost."""
     if cam_grid is None:
         raise ValueError("ba_solve_dense needs a cam-major edge table (cam_grid=(C, N)); "
                          "use ba_solve for other edge layouts")
     huber_delta2 = residuals.CHI2_STEREO if use_huber else 0.0
-    loc_ids, ploc = _local_point_table(prob, n_local_pts, cam_grid)
+    loc_ids, index = _local_point_index(prob, n_local_pts, cam_grid)
     poses, points = prob.poses, prob.points
     cost = _cost_grid(prob, poses, points, huber_delta2, cam_grid, terms)
     lam = torch.full((), 1e-4, dtype=poses.dtype, device=poses.device)
     for _ in range(n_iters):
         poses, points, cost, ok = _dense_schur_step(prob, poses, points, lam, huber_delta2,
-                                                    loc_ids, ploc, cam_grid, terms)
+                                                    loc_ids, index, cam_grid, terms)
         lam = torch.clamp(torch.where(ok, lam * 0.5, lam * 4.0), 1e-8, 1e8)
     return prob._replace(poses=poses, points=points), cost

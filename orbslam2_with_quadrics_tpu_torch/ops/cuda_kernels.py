@@ -20,9 +20,11 @@ Counterpart of the reference's ``ops/pallas_kernels.py``. Each source
   the reference's ``orb.extract`` (one-hot MXU gathers on the TPU). Wrapper
   in ``ops/orb.py`` (``describe``).
 - ``ba_dense_terms`` — the dense-Schur local BA's per-edge terms, camera
-  blocks and point blocks (a terms pass and a point pass), and the robust
-  cost alone, replacing the planar, one-hot-matmul body of the reference's
-  ``ba._dense_schur_step``. Wrapper in ``ops/ba.py`` (``dense_terms``).
+  blocks and point blocks (a terms pass over the edges and a slot pass over
+  the point-major edge index, which writes V and VH as the S product reads
+  them), and the robust cost alone, replacing the planar, one-hot-matmul
+  body of the reference's ``ba._dense_schur_step``. Wrapper in
+  ``ops/ba.py`` (``dense_terms``).
 
 A CPU tensor takes a kernel's plain version; a CUDA tensor launches the
 kernel or raises. Each source is compiled at first use by ``nvcc`` for

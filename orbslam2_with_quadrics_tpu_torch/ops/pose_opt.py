@@ -14,11 +14,14 @@ plain PyTorch version (:func:`pose_optimization_plain`), ~100 small ops per
 LM step. The kernel replaces the reference's jitted ``fori_loop`` solve
 (``orbslam2_with_quadrics_tpu/ops/pose_opt.py:190-280``). What bounds it
 on the card is latency, not bytes or FLOPs: the schedule is a chain of
-2 * rounds * (iters + 1) + rounds dependent block-wide reductions (30 at
-4 x 5), each followed by a serial 6x6 solve. The kernel keeps that chain
-inside one block of 256 threads (a fixed-order shuffle-and-shared-memory
-reduction per link, thread 0 solving and retracting between barriers), so
-the host pays one launch per solve instead of ~3,000 per frame.
+2 * rounds * (iters + 1) + rounds dependent links (52 at 4 x 5), each LM
+evaluation a block-wide reduction followed by a serial 6x6 solve. The
+kernel keeps that chain inside one block of 256 threads: the observations
+in registers for the whole solve, one barrier a reduction (a
+lane-transpose reduction in each warp, the warps' partials added in warp
+order), and every thread solving and retracting the same step from the
+shared sums, so that no second barrier hands it over; the host pays one
+launch per solve instead of ~3,000 per frame.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@
 
 Times each piece of ``ops/ba.py::ba_solve_dense`` on a local-BA-shaped
 problem (C = 49 cameras, N = 1,024 keypoints each, P = 8,192 points,
-cam-major): ``_edge_terms``, ``_build_system``, ``_local_point_table``, one
+cam-major): ``_edge_terms``, ``_build_system``, ``_local_point_index``, one
 ``_dense_schur_step``, ``ba_solve_dense`` at 4 iterations, the O -> P
 segment sums (``index_add_``) and the batched 3x3 inverse (``_inv3x3``,
 with ``torch.linalg.inv`` beside it). ``--slope`` (also run by default
@@ -60,7 +60,7 @@ def pieces(prob):
     grid = (Cc, prob.cam_idx.shape[0] // Cc)
     h2 = residuals.CHI2_STEREO
     lam = torch.tensor(1e-4, device=prob.points.device)
-    loc_ids, ploc = ba._local_point_table(prob, Pp, grid)
+    loc_ids, index = ba._local_point_index(prob, Pp, grid)
     O = prob.cam_idx.shape[0]
     ones33 = torch.ones((O, 3, 3), device=prob.points.device)
 
@@ -70,9 +70,9 @@ def pieces(prob):
     return [
         ("edge_terms (res+jac+cost)", lambda p: ba._edge_terms(p, h2)[5]),
         ("build_system (Hcc,Hpp-inv,Wcp)", lambda p: ba._build_system(p, h2, lam)[0]),
-        ("local_point_table (unique)", lambda p: ba._local_point_table(p, Pp, grid)[1]),
+        ("local_point_index (sort)", lambda p: ba._local_point_index(p, Pp, grid)[1].order),
         ("one full dense LM step", lambda p: ba._dense_schur_step(
-            p, p.poses, p.points, lam, h2, loc_ids, ploc, grid)[2]),
+            p, p.poses, p.points, lam, h2, loc_ids, index, grid)[2]),
         ("ba_solve_dense 4 iters", lambda p: ba.ba_solve_dense(
             p, n_iters=4, n_local_pts=Pp, use_huber=True, cam_grid=grid)[1]),
         ("index_add_ O->P [3,3]", lambda p: segsum(ones33 + p.points[0, 0], p.pnt_idx)),

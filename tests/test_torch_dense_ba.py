@@ -3,7 +3,8 @@ reference's, on the CPU.
 
 The problems are ``tests/test_ba.py``'s dense-Schur cases (built with JAX,
 carried across with ``ba_problem_from_numpy``). Tolerances:
-- ``_local_point_table``: the local slots and each edge's slot identical
+- ``_local_point_index`` against the reference's ``_local_point_table``:
+  the local slots and each edge's slot identical
   (so the overflow set, the eligible points past the L kept, is too);
 - ``ba_solve_dense``: poses within 1e-4, cost within 1e-4 relative; points
   within 1e-4 at the median and 1e-3 + 2e-3 relative at most (a far point
@@ -103,9 +104,9 @@ def test_ba_solve_dense_matches_reference(case):
         L, huber = jprob.points.shape[0], case != "dense"
     prob = ba.ba_problem_from_numpy(jprob)
     j_ids, j_ploc = jba._local_point_table(jprob, L, grid)
-    ids, ploc = ba._local_point_table(prob, L, grid)
+    ids, index = ba._local_point_index(prob, L, grid)
     np.testing.assert_array_equal(ids.numpy(), np.asarray(j_ids))
-    np.testing.assert_array_equal(ploc.numpy(), np.asarray(j_ploc))
+    np.testing.assert_array_equal(index.ploc.numpy(), np.asarray(j_ploc))
     if case == "overflow":  # eligible points past the L kept: fixed this solve
         active = np.unique(np.asarray(jprob.pnt_idx))
         assert len(active) > L and set(active) - set(ids.numpy().tolist())
@@ -160,9 +161,9 @@ def test_inv3x3_and_cholesky_nan():
     # a step through such a matrix is rejected: the LM keeps its state
     jprob, grid = overflow_problem()
     prob = ba.ba_problem_from_numpy(jprob)
-    ids, ploc = ba._local_point_table(prob, 128, grid)
+    ids, index = ba._local_point_index(prob, 128, grid)
     poses, points, cost, acc = ba._dense_schur_step(
-        prob, prob.poses, prob.points, torch.tensor(-3.0), 0.0, ids, ploc, grid)
+        prob, prob.poses, prob.points, torch.tensor(-3.0), 0.0, ids, index, grid)
     assert not bool(acc)
     assert torch.equal(poses, prob.poses) and torch.equal(points, prob.points)
     assert torch.isfinite(cost)

@@ -30,6 +30,9 @@ On the CPU:
   version's own distance to that evaluation (its float32 matmul); >= 99%
   bit-equal, bit-equal wherever the angles are, every keypoint bit-equal
   on a one-level integer image;
+- a numpy model of the lane-transpose reduction that ``csrc/pose_lm.cu``
+  and ``csrc/ba_dense_terms.cu`` use: lane l ends with value l's warp sum,
+  bit for bit the shuffle-xor tree's;
 - the wrappers' CPU route launches nothing.
 
 The reference (and with it JAX) is imported inside :func:`jax_ref`, so the
@@ -379,6 +382,37 @@ def test_detect_kernel_model_matches_plain(name):
     assert int(ref[2].sum()) > 0
 
 
+def warp_transpose_sum_model(v):
+    """[32 lanes, 32 values] float32 -> [32]: what each lane holds after the
+    lane-transpose reduction of ``csrc/pose_lm.cu`` and
+    ``csrc/ba_dense_terms.cu`` (at each level a lane keeps one half of its
+    values, sends the other to the lane ``H`` away and adds what comes back)."""
+    lanes = np.arange(32)
+    for H in (16, 8, 4, 2, 1):
+        upper = ((lanes & H) != 0)[:, None]
+        send = np.where(upper, v[:, :H], v[:, H:2 * H])
+        keep = np.where(upper, v[:, H:2 * H], v[:, :H])
+        v = keep + send[lanes ^ H]
+    return v[:, 0]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_lane_transpose_reduction_model(seed):
+    """Lane l ends with the warp's sum of value l, added pair by pair as a
+    shuffle-xor tree adds it (so bit for bit the same at every run)."""
+    rng = np.random.RandomState(seed)
+    v = (rng.randn(32, 32) * 10.0 ** rng.randint(-3, 4, (32, 32))).astype(np.float32)
+    got = warp_transpose_sum_model(v)
+    lanes = np.arange(32)
+    tree = v.copy()  # [lane, value]
+    for H in (16, 8, 4, 2, 1):
+        tree = tree + tree[lanes ^ H]
+    assert got.dtype == np.float32
+    assert np.array_equal(got, tree[0])
+    np.testing.assert_allclose(got, v.astype(np.float64).sum(0), rtol=1e-5,
+                               atol=1e-5 * np.abs(v).sum(0).max())
+
+
 def test_cpu_routes_launch_nothing():
     from orbslam2_with_quadrics_tpu_torch.ops import ba
 
@@ -622,6 +656,22 @@ def test_pose_lm_matches_plain_on_card(cuda_device, name, schedule):
     differ = N(got[1]) != N(ref[1])
     assert not (differ & ~near_gate(N(ref[0]), case)).any()
     assert abs(int(got[2]) - int(ref[2])) <= int(differ.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stereo", [0.0, 0.5])
+def test_pose_lm_rows_past_the_registers_on_card(cuda_device, stereo):
+    """3,000 rows: the kernel keeps 2,048 in registers and reads the rest
+    from memory on each pass, their inlier flags with them."""
+    case = pose_case(seed=8, n=3000, stereo=stereo, outliers=300)
+    args = to_torch(case, cuda_device)
+    got = pose_opt.pose_optimization(*args, rounds=4, iters=5)
+    ref = pose_opt.pose_optimization_plain(*args, rounds=4, iters=5)
+    np.testing.assert_allclose(N(got[0]), N(ref[0]), atol=1e-4)
+    differ = N(got[1]) != N(ref[1])
+    assert not (differ & ~near_gate(N(ref[0]), case)).any()
+    assert abs(int(got[2]) - int(ref[2])) <= int(differ.sum())
+    assert 2400 < int(got[2]) < 3000
 
 
 @pytest.mark.cuda

@@ -46,7 +46,7 @@ from orbslam2_with_quadrics_tpu_torch.scripts import (bench_ba, bench_dist_ba, b
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NEW_MODULES = ("debug_oab", "bench_ba", "profile_lba", "profile_track", "bench_profile",
-               "train_vocab", "bench_dist_ba", "common", "bench")
+               "train_vocab", "bench_dist_ba", "common", "bench", "ab_kernels")
 
 
 @pytest.fixture(scope="module", autouse=True)
