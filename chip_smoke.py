@@ -1319,6 +1319,28 @@ def launch_checks(launches: dict, n_calls: dict):
     return checks
 
 
+def span_ms(s: dict) -> float:
+    """A span's time: its device time where it ran on the card, else its
+    host time (a stage of host work, or the CPU)."""
+    return s["device_ms"] if s["device_ms"] is not None else s["host_ms"]
+
+
+def closure_attempts(spans: list) -> list:
+    """One dict per ``lc.attempt_close`` span: its counts (slot, cand, the
+    four gates, the Sim3 scale, closed) and ``<stage>_ms`` of each span
+    under it (``n_edges`` from the graph correction)."""
+    out = []
+    for a in (s for s in spans if s["name"] == "lc.attempt_close"):
+        rec, under = dict(a["counts"]), {a["id"]}
+        for s in sorted(spans, key=lambda s: s["id"]):
+            if s["parent"] in under:
+                under.add(s["id"])
+                rec[s["name"][3:] + "_ms"] = span_ms(s)
+                rec.update(s["counts"])
+        out.append(rec)
+    return out
+
+
 def run_main_path(name="mono", device="cuda", sync=False, log_every=5, rendered=None,
                   **overrides):
     """Drive one of ``PATHS`` through ``System.track_*`` (``overrides``
@@ -1327,11 +1349,11 @@ def run_main_path(name="mono", device="cuda", sync=False, log_every=5, rendered=
     kernels' launch counts are set to 0 just before the first frame and read
     just after the last. Returns a dict of the run's numbers; raises on any
     failed check."""
-    from orbslam2_with_quadrics_tpu_torch.models import loop_closing as lc
     from orbslam2_with_quadrics_tpu_torch.models import quadric_mapping as qm
     from orbslam2_with_quadrics_tpu_torch.models import system as sysm
     from orbslam2_with_quadrics_tpu_torch.ops import cuda_kernels as ck
     from orbslam2_with_quadrics_tpu_torch.ops import quadrics
+    from orbslam2_with_quadrics_tpu_torch.utils import tracing
 
     spec = {**PATHS[name], **overrides}
     bar = {k: spec.pop(k, None) for k in ("min_tracked", "min_kf", "ate_max", "metric",
@@ -1379,8 +1401,9 @@ def run_main_path(name="mono", device="cuda", sync=False, log_every=5, rendered=
     qm.QuadricManager.joint_ba = host_timed(qm.QuadricManager.joint_ba, "joint_ba")
     quadrics.quadric_init = host_timed(quadrics.quadric_init, "quadric_init")
     sysm.System._relocalize = timed_relocalize
-    traced = bool(kidnap or bar["loop"])  # tracing drains the device per stage
-    lc.TRACE = [] if traced else None
+    traced = bool(kidnap or bar["loop"])  # the loop closer's stages and the global BA
+    tracer = contextlib.ExitStack()
+    spans = tracer.enter_context(tracing.collect()) if traced else []
     old_sync = os.environ.get("ORB_SYNC_TRACK")
     os.environ["ORB_SYNC_TRACK"] = "1" if sync else ""
     try:
@@ -1432,9 +1455,8 @@ def run_main_path(name="mono", device="cuda", sync=False, log_every=5, rendered=
         slam.shutdown()
         traj = slam.full_trajectory()
         launches = dict(ck.LAUNCHES)
-        trace = lc.TRACE or []
     finally:
-        lc.TRACE = None
+        tracer.close()
         for mod, attr, fn in originals:
             setattr(mod, attr, fn)
         calls.close()
@@ -1494,11 +1516,11 @@ def run_main_path(name="mono", device="cuda", sync=False, log_every=5, rendered=
     log(f"[{tag}] {json.dumps(out)}")
     out["slam"] = slam
     if traced:
-        for rec in trace:
-            if "gates" in rec:  # one closure attempt: gates, scale, ms per stage
-                log(f"[{tag}] closure attempt {json.dumps(rec)}")
-        for key in ("add_keyframe_ms", "detect_prepare_ms", "detect_finish_ms"):
-            v = [r[key] for r in trace if key in r]
+        for rec in closure_attempts(spans):
+            log(f"[{tag}] closure attempt {json.dumps(rec)}")
+        for name in ("lc.add_keyframe", "lc.detect_prepare", "lc.detect_finish"):
+            key = name[3:] + "_ms"
+            v = [span_ms(s) for s in spans if s["name"] == name]
             out[key + "_median"] = _median(v)
             log(f"[{tag}] {key}: median {_median(v):.3f}, max {max(v, default=float('nan')):.3f} "
                 f"over {len(v)} keyframes")

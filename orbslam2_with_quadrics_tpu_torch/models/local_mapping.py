@@ -16,6 +16,7 @@ import torch
 
 from ..ops import ba, camera, lie, matching, orb
 from ..ops.orb import topk_stable
+from ..utils import tracing
 from . import map_state as ms
 from .tracking import predict_scale
 
@@ -312,11 +313,16 @@ def _valid_obs(m: ms.MapState):
 
 
 def _schedule(prob, first_iters: int, second_iters: int):
-    """Robust iterations, outlier purge, then plain iterations."""
+    """Robust iterations, outlier purge (traced as ``ba.purge``, counting
+    the edges it drops), then plain iterations."""
     prob, _ = ba.ba_solve(prob, n_iters=first_iters, cg_iters=40, use_huber=True)
-    _, inl = ba.edge_chi2(prob)
-    prob = prob._replace(valid=prob.valid * inl.to(torch.float32))
-    return ba.ba_solve(prob, n_iters=second_iters, cg_iters=40, use_huber=False)
+    with tracing.span("ba.purge", prob.poses.device) as sp:
+        _, inl = ba.edge_chi2(prob)
+        valid = prob.valid * inl.to(torch.float32)
+        if sp:
+            sp.count(purged=torch.count_nonzero(prob.valid) - torch.count_nonzero(valid))
+    return ba.ba_solve(prob._replace(valid=valid), n_iters=second_iters, cg_iters=40,
+                       use_huber=False)
 
 
 def _dense_schedule(prob, cam_grid, first_iters: int, second_iters: int, terms=None):
@@ -335,23 +341,27 @@ def _dense_schedule(prob, cam_grid, first_iters: int, second_iters: int, terms=N
 
 def run_global_ba(m: ms.MapState, Kc, bf, inv_sigma2_tab, n_iters: int = 10):
     """Global BA: every valid keyframe free (keyframe 0 fixed as gauge) and
-    every valid point free, over the full [K,N] observation table."""
+    every valid point free, over the full [K,N] observation table. Traced
+    as ``gba.solve`` (``rows``) over ``gba.build`` and the schedule."""
     K, N = m.kf_obs_point.shape
     dev = m.pt_pos.device
-    _, pnt, okobs = _valid_obs(m)
-    ar = torch.arange(K, device=dev)
-    uvr, is_st, is2, cam_idx = _edge_table(m, ar, inv_sigma2_tab)
-    prob = ba.BAProblem(
-        poses=m.kf_pose, points=m.pt_pos, K=Kc, bf=bf, cam_idx=cam_idx,
-        pnt_idx=pnt.reshape(-1), uvr=uvr, is_stereo=is_st, inv_sigma2=is2,
-        valid=okobs.reshape(-1).to(torch.float32),
-        fixed_cam=((~m.kf_valid) | (ar == 0)).to(torch.float32),
-        fixed_pnt=(~m.pt_valid).to(torch.float32),
-    )
-    prob, cost = _schedule(prob, 5, n_iters)
-    kf_pose = torch.where((m.kf_valid & (ar != 0))[:, None], prob.poses, m.kf_pose)
-    pt_pos = torch.where(m.pt_valid[:, None], prob.points, m.pt_pos)
-    return m._replace(kf_pose=kf_pose, pt_pos=pt_pos), cost
+    with tracing.span("gba.solve", dev) as sp:
+        sp.count(rows=K * N)
+        with tracing.span("gba.build", dev):
+            _, pnt, okobs = _valid_obs(m)
+            ar = torch.arange(K, device=dev)
+            uvr, is_st, is2, cam_idx = _edge_table(m, ar, inv_sigma2_tab)
+            prob = ba.BAProblem(
+                poses=m.kf_pose, points=m.pt_pos, K=Kc, bf=bf, cam_idx=cam_idx,
+                pnt_idx=pnt.reshape(-1), uvr=uvr, is_stereo=is_st, inv_sigma2=is2,
+                valid=okobs.reshape(-1).to(torch.float32),
+                fixed_cam=((~m.kf_valid) | (ar == 0)).to(torch.float32),
+                fixed_pnt=(~m.pt_valid).to(torch.float32),
+            )
+        prob, cost = _schedule(prob, 5, n_iters)
+        kf_pose = torch.where((m.kf_valid & (ar != 0))[:, None], prob.poses, m.kf_pose)
+        pt_pos = torch.where(m.pt_valid[:, None], prob.points, m.pt_pos)
+        return m._replace(kf_pose=kf_pose, pt_pos=pt_pos), cost
 
 
 def local_ba_problem(m: ms.MapState, kf_id, Kc, bf, inv_sigma2_tab, window: int = 16,

@@ -17,44 +17,15 @@ from __future__ import annotations
 
 import os
 import sys
-import time
 
 import numpy as np
 import torch
 
 from ..ops import camera, lie, matching, orb, pose_graph, sim3solver, vocab
 from ..ops.orb import topk_stable
+from ..utils import tracing
 from . import map_state as ms
 from .tracking import predict_scale
-
-# When a list, every closure attempt appends a dict of its gates, Sim3 scale
-# and per-stage wall times (each stage followed by a device synchronize), and
-# every database update / detection its time. None (the default) records
-# nothing and synchronizes nothing.
-TRACE = None
-
-
-def _sync(dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
-class _Stage:
-    """Times one stage into ``rec[name]`` (ms, device drained) when tracing."""
-
-    def __init__(self, rec, name, dev):
-        self.rec, self.name, self.dev = rec, name, dev
-
-    def __enter__(self):
-        if self.rec is not None:
-            _sync(self.dev)
-            self.t0 = time.perf_counter()
-
-    def __exit__(self, *exc):
-        if self.rec is not None:
-            _sync(self.dev)
-            self.rec[self.name] = 1e3 * (time.perf_counter() - self.t0)
-
 
 def gather_loop_points(m: ms.MapState, cand, n_nb: int = 10, budget: int = 4096):
     """Fixed-size id list of the loop side's map points: everything
@@ -248,7 +219,7 @@ def _detect_prep_dense(m, bow, words, idf, slot, n_words: int):
 
 def _sim3_geometry(m: ms.MapState, words, slot, cand, Kc, n_levels: int = 8,
                    scale: float = 1.2, height: int = 480, width: int = 640,
-                   fix_scale: bool = False, sel=None, generator=None, rec=None):
+                   fix_scale: bool = False, sel=None, generator=None):
     """ComputeSim3's geometric chain with no host read: descriptor pairing,
     Horn RANSAC, Sim3 LM, and the corrected-projection expansion gate.
     Returns (gates[4] = [n_pairs, n_ransac, n_lm, n_total], S_cur_w_corr,
@@ -264,7 +235,7 @@ def _sim3_geometry(m: ms.MapState, words, slot, cand, Kc, n_levels: int = 8,
     # pairs by vocabulary word is a CPU pruning heuristic; exact leaf-word
     # equality starves the gate on true loops, and the dense mutual-best
     # Hamming search costs the same as any bucketing here, so pair densely.
-    with _Stage(rec, "mutual_match_ms", dev):
+    with tracing.span("lc.mutual_match", dev):
         mi, _ = matching.mutual_match(
             m.kf_desc[slot], m.kf_kp_valid[slot],
             m.kf_desc[cand], m.kf_kp_valid[cand],
@@ -286,13 +257,13 @@ def _sim3_geometry(m: ms.MapState, words, slot, cand, Kc, n_levels: int = 8,
 
     # 2. Horn RANSAC: S maps candidate-camera -> current-camera (stereo /
     #    RGB-D fix the scale)
-    with _Stage(rec, "ransac_sim3_ms", dev):
+    with tracing.span("lc.ransac_sim3", dev):
         S, inl, n_ransac = sim3solver.ransac_sim3(
             p1, p2, pair_ok, Kc, Kc, uv1, uv2, s2_1, s2_2, sel=sel,
             generator=generator, fix_scale=fix_scale,
         )
     # 3. LM polish (>= 20 inliers)
-    with _Stage(rec, "optimize_sim3_ms", dev):
+    with tracing.span("lc.optimize_sim3", dev):
         S, inl, n_lm = sim3solver.optimize_sim3(
             S, p1, p2, pair_ok & inl, Kc, Kc, uv1, uv2,
             1.0 / torch.clamp(s2_1, min=1e-9), 1.0 / torch.clamp(s2_2, min=1e-9),
@@ -303,7 +274,7 @@ def _sim3_geometry(m: ms.MapState, words, slot, cand, Kc, n_levels: int = 8,
     S_cur_w_corr = lie.sim3_compose(S, lie.sim3_from_se3(T_cnd))
 
     # 5. loop-point expansion gate
-    with _Stage(rec, "project_loop_points_ms", dev):
+    with tracing.span("lc.project_loop_points", dev):
         loop_ids = gather_loop_points(m, cand)
         proj_kp = project_loop_points(
             m, slot, S_cur_w_corr, loop_ids, Kc,
@@ -416,8 +387,8 @@ class LoopCloser:
         self.add_keyframe(slot, m.kf_desc[slot], m.kf_kp_valid[slot])
 
     def add_keyframe(self, slot: int, desc, valid):
-        rec = {"slot": int(slot)} if TRACE is not None else None
-        with _Stage(rec, "add_keyframe_ms", self.device):
+        with tracing.span("lc.add_keyframe", self.device) as sp:
+            sp.count(slot=int(slot))
             word, _ = vocab.transform_any(self.voc, desc, valid)
             if self.sparse:
                 wid, wval = vocab.sparse_bow(word, self.voc.idf)
@@ -427,8 +398,6 @@ class LoopCloser:
             else:
                 bv = vocab.bow_vector(word, self.voc.n_words, self.voc.idf)
                 self.bow, self.words = _db_update_dense(self.bow, self.words, bv, word, slot)
-        if rec is not None:
-            TRACE.append(rec)
 
     def score_query(self, word, kf_valid):
         """Database similarity of one frame's word ids against every
@@ -468,16 +437,14 @@ class LoopCloser:
         keyframe). Returns None when detection is structurally skipped."""
         if n_live < 8 or slot - self.last_loop_kf < 10:
             return None
-        rec = {"slot": int(slot)} if TRACE is not None else None
-        with _Stage(rec, "detect_prepare_ms", self.device):
+        with tracing.span("lc.detect_prepare", self.device) as sp:
+            sp.count(slot=int(slot))
             if self.sparse:
                 W, scores, common = _detect_prep_sparse(
                     m, self.kf_wid, self.kf_wval, self.words, self.voc.idf, slot)
             else:
                 W, scores, common = _detect_prep_dense(
                     m, self.bow, self.words, self.voc.idf, slot, self.voc.n_words)
-        if rec is not None:
-            TRACE.append(rec)
         return (slot, ms.HostCopy(W), ms.HostCopy(scores), ms.HostCopy(common))
 
     def finish_detect(self, prep) -> list[int]:
@@ -487,12 +454,9 @@ class LoopCloser:
         if prep is None:
             return []
         slot, W, scores, common = prep
-        t0 = time.perf_counter()
-        out = self._detect_host(slot, W.numpy(), scores.numpy(), common.numpy())
-        if TRACE is not None:
-            TRACE.append({"slot": int(slot),
-                          "detect_finish_ms": 1e3 * (time.perf_counter() - t0)})
-        return out
+        with tracing.span("lc.detect_finish") as sp:  # host work alone
+            sp.count(slot=int(slot))
+            return self._detect_host(slot, W.numpy(), scores.numpy(), common.numpy())
 
     def detect(self, m: ms.MapState, slot: int) -> list[int]:
         """DetectLoop: query the database, gate by min covisible score,
@@ -583,100 +547,99 @@ class LoopCloser:
         read; the four gate counts come back in a single fetch. ``sel``:
         optional RANSAC minimal sets handed to ``ransac_sim3``."""
         dev = m.pt_pos.device
-        rec = {"slot": int(slot), "cand": int(cand)} if TRACE is not None else None
-        with _Stage(rec, "sim3_geometry_ms", dev):
-            gates, S_cur_w_corr, loop_ids = _sim3_geometry(
-                m, self.words, slot, cand, Kc, n_levels=n_levels, scale=scale,
-                height=height, width=width, fix_scale=fix_scale, sel=sel,
-                generator=generator, rec=rec,
-            )
-        # [n_pairs, n_ransac_inl, n_lm_inl, n_total, sim3 scale]: the
-        # staged >= 20 / >= 20 / >= 20 / >= 40 gates, one host fetch
-        fetched = torch.cat([gates.to(torch.float32), S_cur_w_corr[7:8]]).cpu().numpy()
-        g = fetched[:4].astype(np.int64)
-        ok = not (g[0] < 20 or g[1] < 20 or g[2] < 20 or g[3] < 40)
-        if rec is not None:
-            rec.update(gates=g.tolist(), sim3_scale=float(fetched[4]), closed=ok)
-            TRACE.append(rec)
-        if not ok:
+        with tracing.span("lc.attempt_close", dev) as sp:
+            sp.count(slot=int(slot), cand=int(cand))
+            with tracing.span("lc.sim3_geometry", dev):
+                gates, S_cur_w_corr, loop_ids = _sim3_geometry(
+                    m, self.words, slot, cand, Kc, n_levels=n_levels, scale=scale,
+                    height=height, width=width, fix_scale=fix_scale, sel=sel,
+                    generator=generator,
+                )
+            # [n_pairs, n_ransac_inl, n_lm_inl, n_total, sim3 scale]: the
+            # staged >= 20 / >= 20 / >= 20 / >= 40 gates, one host fetch
+            fetched = torch.cat([gates.to(torch.float32), S_cur_w_corr[7:8]]).cpu().numpy()
+            g = fetched[:4].astype(np.int64)
+            ok = not (g[0] < 20 or g[1] < 20 or g[2] < 20 or g[3] < 40)
+            sp.count(gates=g.tolist(), sim3_scale=float(fetched[4]), closed=ok)
+            if not ok:
+                if _debug_loops():
+                    print(f"[loop-rej] slot={slot} cand={cand} gates={g.tolist()}",
+                          file=sys.stderr, flush=True)
+                return m, False
             if _debug_loops():
-                print(f"[loop-rej] slot={slot} cand={cand} gates={g.tolist()}",
-                      file=sys.stderr, flush=True)
-            return m, False
-        if _debug_loops():
-            print(f"[loop] slot={slot} cand={cand} gates={g.tolist()} "
-                  f"sim3_scale={float(fetched[4]):.4f}", file=sys.stderr, flush=True)
+                print(f"[loop] slot={slot} cand={cand} gates={g.tolist()} "
+                      f"sim3_scale={float(fetched[4]):.4f}", file=sys.stderr, flush=True)
 
-        with _Stage(rec, "correct_graph_ms", dev):
-            m = self._correct_graph(m, slot, cand, S_cur_w_corr, rec=rec)
-        # SearchAndFuse: merge the duplicated landmarks of the revisited
-        # place into the loop side's originals
-        with _Stage(rec, "fuse_loop_points_ms", dev):
-            m, _ = fuse_loop_points(
-                m, slot, loop_ids, Kc,
-                n_levels=n_levels, scale=scale, height=height, width=width,
-            )
-        self.loop_edges.append((int(slot), int(cand)))
-        self.last_loop_kf = slot
-        return m, True
+            m = self._correct_graph(m, slot, cand, S_cur_w_corr)
+            # SearchAndFuse: merge the duplicated landmarks of the revisited
+            # place into the loop side's originals
+            with tracing.span("lc.fuse_loop_points", dev):
+                m, _ = fuse_loop_points(
+                    m, slot, loop_ids, Kc,
+                    n_levels=n_levels, scale=scale, height=height, width=width,
+                )
+            self.loop_edges.append((int(slot), int(cand)))
+            self.last_loop_kf = slot
+            return m, True
 
-    def _correct_graph(self, m: ms.MapState, slot, cand, S_cur_w_corr, rec=None):
+    def _correct_graph(self, m: ms.MapState, slot, cand, S_cur_w_corr):
         """Sim3 propagation + essential-graph optimization + point remap
-        (CorrectLoop + OptimizeEssentialGraph).
+        (CorrectLoop + OptimizeEssentialGraph); traced as
+        ``lc.correct_graph`` (``n_edges``).
 
         Host work is ONE fetch (covisibility, validity, parents) and
         vectorized numpy edge assembly; the rest runs on the device."""
         K = m.kf_valid.shape[0]
         dev = m.pt_pos.device
-        host = torch.cat([ms.covisibility(m), m.kf_valid[None].to(torch.int32),
-                          m.kf_parent[None]]).cpu().numpy()
-        W, kf_valid, parents = host[:K], host[K] > 0, host[K + 1]
+        with tracing.span("lc.correct_graph", dev) as sp:
+            host = torch.cat([ms.covisibility(m), m.kf_valid[None].to(torch.int32),
+                              m.kf_parent[None]]).cpu().numpy()
+            W, kf_valid, parents = host[:K], host[K] > 0, host[K + 1]
 
-        group_mask = (W[slot] > 0) & kf_valid
-        group_mask[slot] = True
+            group_mask = (W[slot] > 0) & kf_valid
+            group_mask[slot] = True
 
-        # --- edges: spanning tree + strong covisibility + loop edges ---
-        ks = np.where(kf_valid)[0]
-        pk = parents[ks]
-        tree_ok = (pk >= 0) & kf_valid[np.clip(pk, 0, K - 1)]
-        ei = [ks[tree_ok]]
-        ej = [pk[tree_ok]]
-        w = [np.ones(int(tree_ok.sum()), np.float32)]
-        cov_i, cov_j = np.where(
-            np.triu(W >= 100, 1) & kf_valid[:, None] & kf_valid[None, :]
-        )
-        ei.append(cov_i)
-        ej.append(cov_j)
-        w.append(np.ones(len(cov_i), np.float32))
-        # previously closed loops stay as constraints so a later closure
-        # cannot re-open them; their measurements come from the CURRENT
-        # (already corrected) poses, which satisfy those loops
-        prev = [(pi, pj) for pi, pj in self.loop_edges if kf_valid[pi] and kf_valid[pj]]
-        if prev:
-            pi, pj = np.asarray(prev, np.int64).T
-            ei.append(pi)
-            ej.append(pj)
-            w.append(np.full(len(prev), 5.0, np.float32))
-        ei.append(np.asarray([slot]))
-        ej.append(np.asarray([cand]))
-        w.append(np.asarray([5.0], np.float32))  # the new loop edge
-        ei = torch.as_tensor(np.concatenate(ei).astype(np.int64), device=dev)
-        ej = torch.as_tensor(np.concatenate(ej).astype(np.int64), device=dev)
-        w = torch.as_tensor(np.concatenate(w), device=dev)
-        is_loop = torch.zeros(ei.shape[0], dtype=torch.bool, device=dev)
-        is_loop[-1] = True
+            # --- edges: spanning tree + strong covisibility + loop edges ---
+            ks = np.where(kf_valid)[0]
+            pk = parents[ks]
+            tree_ok = (pk >= 0) & kf_valid[np.clip(pk, 0, K - 1)]
+            ei = [ks[tree_ok]]
+            ej = [pk[tree_ok]]
+            w = [np.ones(int(tree_ok.sum()), np.float32)]
+            cov_i, cov_j = np.where(
+                np.triu(W >= 100, 1) & kf_valid[:, None] & kf_valid[None, :]
+            )
+            ei.append(cov_i)
+            ej.append(cov_j)
+            w.append(np.ones(len(cov_i), np.float32))
+            # previously closed loops stay as constraints so a later closure
+            # cannot re-open them; their measurements come from the CURRENT
+            # (already corrected) poses, which satisfy those loops
+            prev = [(pi, pj) for pi, pj in self.loop_edges if kf_valid[pi] and kf_valid[pj]]
+            if prev:
+                pi, pj = np.asarray(prev, np.int64).T
+                ei.append(pi)
+                ej.append(pj)
+                w.append(np.full(len(prev), 5.0, np.float32))
+            ei.append(np.asarray([slot]))
+            ej.append(np.asarray([cand]))
+            w.append(np.asarray([5.0], np.float32))  # the new loop edge
+            ei = torch.as_tensor(np.concatenate(ei).astype(np.int64), device=dev)
+            ej = torch.as_tensor(np.concatenate(ej).astype(np.int64), device=dev)
+            w = torch.as_tensor(np.concatenate(w), device=dev)
+            is_loop = torch.zeros(ei.shape[0], dtype=torch.bool, device=dev)
+            is_loop[-1] = True
 
-        S_old, S_new_init, meas = _graph_arrays(
-            m, slot, cand, S_cur_w_corr, torch.as_tensor(group_mask, device=dev),
-            ei, ej, is_loop,
-        )
-        fixed = torch.zeros(K, dtype=torch.float32, device=dev)
-        fixed[cand] = 1.0
-        if rec is not None:
-            rec["n_edges"] = int(ei.shape[0])
-        with _Stage(rec, "optimize_pose_graph_ms", dev):
-            S_opt = pose_graph.optimize_pose_graph(S_new_init, ei, ej, meas, w, fixed)
-        return _apply_graph(m, S_old, S_opt)
+            S_old, S_new_init, meas = _graph_arrays(
+                m, slot, cand, S_cur_w_corr, torch.as_tensor(group_mask, device=dev),
+                ei, ej, is_loop,
+            )
+            fixed = torch.zeros(K, dtype=torch.float32, device=dev)
+            fixed[cand] = 1.0
+            sp.count(n_edges=int(ei.shape[0]))
+            with tracing.span("lc.optimize_pose_graph", dev):
+                S_opt = pose_graph.optimize_pose_graph(S_new_init, ei, ej, meas, w, fixed)
+            return _apply_graph(m, S_old, S_opt)
 
 
 def loop_closer_state_from_numpy(lcs: LoopCloser, src) -> LoopCloser:

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils import tracing
 from . import cuda_kernels, lie, residuals
 from .pose_opt import robust_cost
 
@@ -142,43 +143,56 @@ def _schur_rhs(prob, Hpp_inv, bp, Wcp, group=None):
 def ba_iteration(prob: BAProblem, lam, huber_delta2: float, cg_iters: int, group=None):
     """One damped Gauss-Newton (LM) step. Returns (new_prob, cost, step_ok).
     With a ``group`` the step and its accept test are computed from reduced
-    values only, so every rank takes the same step."""
-    Hcc_d, bc, Hpp_inv, bp, Wcp, cost = _build_system(prob, huber_delta2, lam, group)
-    g = bc - _schur_rhs(prob, Hpp_inv, bp, Wcp, group)
-    dc = _pcg(g, lambda x: _schur_matvec(x, prob, Hcc_d, Hpp_inv, Wcp, group),
-              torch.linalg.inv_ex(Hcc_d)[0], cg_iters)
-    dc = dc * (1.0 - prob.fixed_cam)[:, None]
-    # back-substitute points: dp = Hpp^-1 (bp - W^T dc)
-    t1 = torch.einsum("oij,oi->oj", Wcp, dc[prob.cam_idx])
-    dp = torch.einsum("pij,pj->pi", Hpp_inv,
-                      bp - _seg(t1, prob.pnt_idx, prob.points.shape[0], group))
-    dp = dp * (1.0 - prob.fixed_pnt)[:, None]
-    cand = prob._replace(poses=lie.se3_retract(prob.poses, dc),
-                         points=prob.points + dp)
-    new_cost = _edge_terms(cand, huber_delta2, group)[5]
-    ok = (new_cost < cost) & torch.all(torch.isfinite(dc)) & torch.all(torch.isfinite(dp))
-    if group is not None:
-        # accepted only where every rank accepts
-        flag = ok.to(torch.int32)
-        dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=group)
-        ok = flag > 0
-    out = prob._replace(poses=torch.where(ok, cand.poses, prob.poses),
-                        points=torch.where(ok, cand.points, prob.points))
-    return out, torch.where(ok, new_cost, cost), ok
+    values only, so every rank takes the same step. Traced as ``ba.step``
+    (``rows``, ``live_rows``) over ``ba.system``, ``ba.pcg`` and
+    ``ba.update`` (``utils/tracing.py``)."""
+    dev = prob.poses.device
+    with tracing.span("ba.step", dev) as step:
+        if step:
+            step.count(rows=prob.valid.shape[0], live_rows=torch.count_nonzero(prob.valid))
+        with tracing.span("ba.system", dev):
+            Hcc_d, bc, Hpp_inv, bp, Wcp, cost = _build_system(prob, huber_delta2, lam, group)
+            g = bc - _schur_rhs(prob, Hpp_inv, bp, Wcp, group)
+        with tracing.span("ba.pcg", dev) as sp:
+            sp.count(iters=cg_iters)
+            dc = _pcg(g, lambda x: _schur_matvec(x, prob, Hcc_d, Hpp_inv, Wcp, group),
+                      torch.linalg.inv_ex(Hcc_d)[0], cg_iters)
+        with tracing.span("ba.update", dev):
+            dc = dc * (1.0 - prob.fixed_cam)[:, None]
+            # back-substitute points: dp = Hpp^-1 (bp - W^T dc)
+            t1 = torch.einsum("oij,oi->oj", Wcp, dc[prob.cam_idx])
+            dp = torch.einsum("pij,pj->pi", Hpp_inv,
+                              bp - _seg(t1, prob.pnt_idx, prob.points.shape[0], group))
+            dp = dp * (1.0 - prob.fixed_pnt)[:, None]
+            cand = prob._replace(poses=lie.se3_retract(prob.poses, dc),
+                                 points=prob.points + dp)
+            new_cost = _edge_terms(cand, huber_delta2, group)[5]
+            ok = (new_cost < cost) & torch.all(torch.isfinite(dc)) & torch.all(torch.isfinite(dp))
+            if group is not None:
+                # accepted only where every rank accepts
+                flag = ok.to(torch.int32)
+                dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=group)
+                ok = flag > 0
+            out = prob._replace(poses=torch.where(ok, cand.poses, prob.poses),
+                                points=torch.where(ok, cand.points, prob.points))
+            return out, torch.where(ok, new_cost, cost), ok
 
 
 def ba_solve(prob: BAProblem, n_iters: int = 10, cg_iters: int = 40,
              use_huber: bool = True, group=None):
     """Run ``n_iters`` LM steps. Returns (prob, final_cost). ``group``: a
     ``torch.distributed`` process group over which ``prob``'s edges are
-    sharded (poses and points whole on every rank), or None."""
+    sharded (poses and points whole on every rank), or None. Traced as
+    ``ba.solve`` (``steps``)."""
     huber_delta2 = residuals.CHI2_STEREO if use_huber else 0.0
-    cost = _edge_terms(prob, huber_delta2, group)[5]
-    lam = torch.full((), 1e-4, dtype=prob.poses.dtype, device=prob.poses.device)
-    for _ in range(n_iters):
-        prob, cost, ok = ba_iteration(prob, lam, huber_delta2, cg_iters, group)
-        lam = torch.clamp(torch.where(ok, lam * 0.5, lam * 4.0), 1e-8, 1e8)
-    return prob, cost
+    with tracing.span("ba.solve", prob.poses.device) as sp:
+        sp.count(steps=n_iters)
+        cost = _edge_terms(prob, huber_delta2, group)[5]
+        lam = torch.full((), 1e-4, dtype=prob.poses.dtype, device=prob.poses.device)
+        for _ in range(n_iters):
+            prob, cost, ok = ba_iteration(prob, lam, huber_delta2, cg_iters, group)
+            lam = torch.clamp(torch.where(ok, lam * 0.5, lam * 4.0), 1e-8, 1e8)
+        return prob, cost
 
 
 def edge_chi2(prob: BAProblem):

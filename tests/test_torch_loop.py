@@ -55,7 +55,7 @@ from orbslam2_with_quadrics_tpu_torch.models import loop_closing as lc  # noqa: 
 from orbslam2_with_quadrics_tpu_torch.models import map_state as ms  # noqa: E402
 from orbslam2_with_quadrics_tpu_torch.models import system as sysm  # noqa: E402
 from orbslam2_with_quadrics_tpu_torch.ops import lie, vocab  # noqa: E402
-from orbslam2_with_quadrics_tpu_torch.utils import synthetic  # noqa: E402
+from orbslam2_with_quadrics_tpu_torch.utils import synthetic, tracing  # noqa: E402
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -201,13 +201,9 @@ def test_attempt_close_matches_reference(drifted):
     jcl.words = d["jcloser"].words
     jm2, jok = jcl.attempt_close(jm, slot, cand, K_LOOP, n_levels=4)
     closer = carried_closer(d)
-    lc.TRACE = []
-    try:
+    with tracing.collect() as spans:
         m2, ok = closer.attempt_close(m, slot, cand, T(K_LOOP), n_levels=4,
                                       sel=T(reference_draw(jm, slot, cand)))
-        trace = lc.TRACE
-    finally:
-        lc.TRACE = None
     assert ok and jok
     assert closer.loop_edges == jcl.loop_edges == [(slot, cand)]
     assert closer.last_loop_kf == jcl.last_loop_kf == slot
@@ -221,12 +217,15 @@ def test_attempt_close_matches_reference(drifted):
     assert (N(m2.kf_obs_point) != np.asarray(jm2.kf_obs_point)).mean() < 0.005
     # the input map is untouched (the functions are pure)
     np.testing.assert_array_equal(N(m.kf_pose), np.asarray(jm.kf_pose))
-    # the trace: one record with the four gates, the scale and every stage
-    rec = [r for r in trace if "gates" in r]
-    assert len(rec) == 1 and rec[0]["closed"] and len(rec[0]["gates"]) == 4
-    for key in ("sim3_geometry_ms", "mutual_match_ms", "correct_graph_ms",
-                "optimize_pose_graph_ms", "fuse_loop_points_ms", "sim3_scale"):
-        assert rec[0][key] > 0
+    # the trace: one attempt with the four gates, the scale and every stage
+    # under it (host times on the CPU)
+    rec = [s for s in spans if s["name"] == "lc.attempt_close"]
+    assert len(rec) == 1 and rec[0]["counts"]["closed"] and len(rec[0]["counts"]["gates"]) == 4
+    assert rec[0]["counts"]["sim3_scale"] > 0
+    stage_ms = {s["name"]: s["host_ms"] for s in spans if s["trace"] == rec[0]["trace"]}
+    for key in ("lc.sim3_geometry", "lc.mutual_match", "lc.correct_graph",
+                "lc.optimize_pose_graph", "lc.fuse_loop_points"):
+        assert stage_ms[key] > 0
     # a pair that is no loop fails the gates and changes nothing
     m3, ok3 = closer.attempt_close(m, 4, 2, T(K_LOOP), n_levels=4)
     assert not ok3 and m3 is m and closer.loop_edges == [(slot, cand)]
