@@ -4,9 +4,10 @@
 
 Phases (any failure exits non-zero before the result line):
   1. torch version, device name, card name and power limit (nvidia-smi);
-  2. build the five CUDA kernels from ``orbslam2_with_quadrics_tpu_torch/csrc``
+  2. build the six CUDA kernels from ``orbslam2_with_quadrics_tpu_torch/csrc``
      (``masked_hamming_best2``, ``pose_lm``, ``orb_detect``, ``orb_describe``,
-     ``ba_dense_terms``), one ``nvcc`` per source, started together;
+     ``ba_dense_terms``, ``ba_schur_sweep``), one ``nvcc`` per source, started
+     together;
   3. each kernel against its plain PyTorch version on the card at the main
      path's shapes: the Hamming kernel bit-exact (single and batched, tie /
      all-masked / ragged cases); ``pose_lm`` at stage A's 2 x 3 and stage
@@ -19,8 +20,12 @@ Phases (any failure exits non-zero before the result line):
      480x640 / 8 levels and 1226x370, rendered and tie-heavy;
      ``orb_describe`` at the same shapes (angles within 1e-5 rad, the words
      bit-equal wherever the angles are, at least 99.5% of the valid
-     keypoints bit-equal, every one on a one-level integer image); and at
-     the timed shapes four times of each:
+     keypoints bit-equal, every one on a one-level integer image);
+     ``ba_schur_sweep``'s two sweeps at the benchmark's tables (KITTI 00's
+     4,096,000 rows, 65% live; TUM fr1/desk's 512,000, 5.7% live) within
+     1e-4 of the sum of their terms' magnitudes of the plain version, and
+     its launches in one ``run_global_ba`` exactly steps x (2 x cg_iters +
+     2) = 1,230; and at the timed shapes four times of each:
        kernel_ms  device time of the kernel alone (20 launches captured in a
                   CUDA graph, the replay timed between two events, / 20);
        call_ms    what a caller pays per call on an idle card, the Python
@@ -156,6 +161,7 @@ KERNEL_SOURCE = {
     "orb_detect": "orbslam2_with_quadrics_tpu_torch/csrc/orb_detect.cu",
     "orb_describe": "orbslam2_with_quadrics_tpu_torch/csrc/orb_describe.cu",
     "ba_dense_terms": "orbslam2_with_quadrics_tpu_torch/csrc/ba_dense_terms.cu",
+    "ba_schur_sweep": "orbslam2_with_quadrics_tpu_torch/csrc/ba_schur_sweep.cu",
 }
 KERNEL_REPLACES = {
     "masked_hamming_best2": "orbslam2_with_quadrics_tpu/ops/pallas_kernels.py:115",
@@ -163,6 +169,8 @@ KERNEL_REPLACES = {
     "orb_detect": "orbslam2_with_quadrics_tpu/ops/orb.py:176",
     "orb_describe": "orbslam2_with_quadrics_tpu/ops/orb.py:366",
     "ba_dense_terms": "orbslam2_with_quadrics_tpu/ops/ba.py:409",
+    # replaces no Pallas kernel: the reference's einsum + segment_sum
+    "ba_schur_sweep": "orbslam2_with_quadrics_tpu/ops/ba.py:156",
 }
 KITTI = (1226.0, 370.0)
 
@@ -2289,6 +2297,106 @@ def time_dense_terms(prob, index, grid, L, smi):
     return k
 
 
+# the Schur sweeps at the benchmark's two tables: (cameras, rows a camera,
+# points, live cameras, live share of their rows): KITTI 00 in the stereo
+# driver's pools doubled once (65% of 4,096,000 rows live), TUM fr1/desk in
+# the RGB-D driver's (5.7% of 512,000)
+SWEEP_SHAPES = {"kitti 4096000 rows": (2048, 2000, 262_144, 1400, 0.953),
+                "tum 512000 rows": (512, 1000, 65_536, 30, 0.969)}
+# a sweep reads each live row's block and two int64 indices, and every
+# row's valid flag
+SWEEP_LIVE_ROW_BYTES, SWEEP_ROW_BYTES = 72 + 16, 4
+
+
+def sweep_case(shape, seed, dev="cuda"):
+    """(Coupling, x [C, 6], s [P, 3]) of a camera-major table at ``shape``
+    drawn from ``seed``: whole cameras dead (empty keyframe slots), the
+    live cameras' rows live at the shape's share, each a random point; a
+    dead row's block 0, as the solver makes it."""
+    from orbslam2_with_quadrics_tpu_torch.ops import ba
+
+    C, N, P, live_cams, share = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cam = torch.arange(C, device=dev).repeat_interleave(N)
+    pnt = torch.randint(0, P, (C * N,), generator=g, device=dev)
+    cam_live = torch.zeros(C, dtype=torch.bool, device=dev)
+    cam_live[torch.randperm(C, generator=g, device=dev)[:live_cams]] = True
+    valid = (cam_live[cam] & (torch.rand(C * N, generator=g, device=dev) < share)).float()
+    Wcp = torch.randn(C * N, 6, 3, generator=g, device=dev) * valid[:, None, None]
+    A = torch.randn(P, 3, 3, generator=g, device=dev)
+    Hinv = A @ A.mT + torch.eye(3, device=dev)
+    prob = ba.BAProblem(poses=torch.zeros(C, 7, device=dev), points=torch.zeros(P, 3, device=dev),
+                        K=None, bf=None, cam_idx=cam, pnt_idx=pnt, uvr=None, is_stereo=None,
+                        inv_sigma2=None, valid=valid, fixed_cam=None, fixed_pnt=None)
+    return (ba.coupling(prob, Wcp, Hinv), torch.randn(C, 6, generator=g, device=dev),
+            torch.randn(P, 3, generator=g, device=dev))
+
+
+def sweeps_per_global_ba(dev="cuda", seed=2147483911):
+    """``ba_schur_sweep``'s launches in one ``run_global_ba`` on the
+    benchmark's TUM fr1/desk map (``port_bench``), and the LM steps and PCG
+    iterations of the solve."""
+    from orbslam2_with_quadrics_tpu_torch.ops import cuda_kernels as ck
+    from port_bench import harness, maps
+    from port_bench.entries import global_ba
+
+    cell = harness.load_cell("tum_fr1_desk_rgbd.gba")
+    solve = global_ba.prepare(maps.build(cell.cfg, seed, dev), cell.cfg, cell.mix, dev)
+    before = dict(ck.LAUNCHES)
+    solve()
+    torch.cuda.synchronize()
+    n = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
+    return n, global_ba.steps_per_call(cell.mix), int(cell.mix["cg_iters"])
+
+
+def phase_schur_sweep(smi, dev="cuda"):
+    """``ba_schur_sweep`` against its plain version on the card at the
+    benchmark's two tables: each sweep within 1e-4 of the sum of its terms'
+    magnitudes of the plain version (float32 sums of up to ~2,000 rows a
+    camera, in two orders), timed (``kernel_ms`` by graph replay of 20
+    calls, ``call_ms``, ``plain_ms``, ``bound_ms`` by bytes: live rows x
+    88 B + rows x 4 B); then the launches of one ``run_global_ba``: exactly
+    ``steps x (2 cg_iters + 2)``, and no other kernel's."""
+    from orbslam2_with_quadrics_tpu_torch.ops import ba
+
+    out = {}
+    for name, shape in SWEEP_SHAPES.items():
+        cp, x, s = sweep_case(shape, seed=11, dev=dev)
+        plain = cp._replace(args=None)
+        absolute = plain._replace(Wcp=plain.Wcp.abs(), Hpp_inv=plain.Hpp_inv.abs())
+        # (kernel, plain version, the terms' magnitudes, the kernel's sign)
+        pairs = {"cam_to_point": (lambda: ba.sweep_cam_to_point(cp, x),
+                                  lambda: ba.sweep_cam_to_point_plain(plain, x),
+                                  ba.sweep_cam_to_point_plain(absolute, x.abs()), 1.0),
+                 "point_to_cam": (lambda: ba.sweep_point_to_cam(cp, s),
+                                  lambda: ba.sweep_point_to_cam_plain(plain, s),
+                                  ba.sweep_point_to_cam_plain(absolute, s.abs()), -1.0)}
+        live = int((cp.valid > 0).sum())
+        rows = cp.valid.shape[0]
+        bound = (live * SWEEP_LIVE_ROW_BYTES + rows * SWEEP_ROW_BYTES) / HBM_BYTES_PER_S * 1e3
+        for kname, (kernel, plain_fn, mag, sign) in pairs.items():
+            err = float(((sign * kernel() - plain_fn()).abs() / (mag + 1e-30)).max())
+            if not err <= 1e-4:
+                raise AssertionError(f"ba_schur_sweep {kname} at {name}: {err:.3e} of its terms' "
+                                     f"magnitudes from the plain version")
+            t = {"kernel_ms": graph_kernel_ms(kernel), "call_ms": cuda_median_ms(kernel),
+                 "plain_ms": cuda_median_ms(plain_fn, reps=10), "bound_ms": bound,
+                 "bound_by": "bytes", "err": err, "live_rows": live, "rows": rows}
+            out[f"{kname} {name}"] = t
+            log(f"[kernel] ba_schur_sweep {kname} at {name} ({live} live): kernel_ms "
+                f"{t['kernel_ms']:.5f}, call_ms {t['call_ms']:.5f}, plain_ms {t['plain_ms']:.4f}, "
+                f"bound_ms {bound:.5f} by bytes ({100 * bound / t['kernel_ms']:.1f}% of it); "
+                f"{err:.2e} of the terms' magnitudes from the plain version ({smi})")
+    n, steps, cg = sweeps_per_global_ba(dev)
+    want = steps * (2 * cg + 2)
+    log(f"[kernel] ba_schur_sweep launches per run_global_ba: {n['ba_schur_sweep']} "
+        f"({steps} LM steps x (2 x {cg} + 2) = {want}); others {json.dumps(n)}")
+    if n["ba_schur_sweep"] != want or any(v for k, v in n.items() if k != "ba_schur_sweep"):
+        raise AssertionError(f"ba_schur_sweep: {n} launches in one run_global_ba, {want} of "
+                             f"the sweeps and none of the other kernels expected")
+    return out, n["ba_schur_sweep"]
+
+
 def mono_window(mono):
     """(prob0, (C, N), L, cam_ok): the local-BA problem of the last
     keyframe's window of the mono path's map (``run_main_path("mono")``'s
@@ -2379,12 +2487,21 @@ def phase_dense_ba(mono, smi):
     # ba_dense_terms at every step of the schedule, on the plain route's states
     held0 = prob0._replace(fixed_cam=held)
     steps = []
+    rejected = []  # cost calls at a candidate both routes make non-finite
 
     def checked(pr, poses, points, d2, grid, lam=None, ploc=None, n_local=0):
         ref = ba.dense_terms_plain(pr, poses, points, d2, grid, lam, ploc, n_local)
         got = ba.dense_terms(pr, poses, points, d2, grid, lam, ploc, n_local)
         if ploc is None:
-            d = ba_relative(got, ref)
+            # a step whose S is not positive definite gives a NaN candidate
+            # (_cholesky_solve_nan), whose cost is NaN in both routes: both
+            # then reject it, which is agreement; one route alone non-finite
+            # is not
+            if not (bool(torch.isfinite(got)) or bool(torch.isfinite(ref))):
+                rejected.append(len(steps))
+                d = 0.0
+            else:
+                d = ba_relative(got, ref)
             steps.append(({"cost": d}, d <= 1e-5))
         else:
             p64 = in_float64(pr)
@@ -2401,7 +2518,8 @@ def phase_dense_ba(mono, smi):
                         else max(worst.get(k, 0.0), v))
     n_bad = sum(not ok for _, ok in steps)
     log(f"[kernel] ba_dense_terms at every step of the 4 + 6 schedule ({len(steps)} calls, "
-        f"{n_bad} off the bars): largest relative distance to the plain version "
+        f"{n_bad} off the bars; calls {rejected} at a candidate both routes make non-finite, "
+        f"so both reject it): largest relative distance to the plain version "
         f"{json.dumps({k: v for k, v in worst.items() if not k.endswith('float64')})}; "
         f"Hpi, Hpib, VH from a float64 evaluation [kernel, plain] "
         f"{json.dumps({k: v for k, v in worst.items() if k.endswith('float64')})}")
@@ -2508,6 +2626,7 @@ def main() -> int:
         datasets = pool.submit(write_driver_sequences, os.path.join(tmp, "datasets"))
         max_err, times = phase_kernels(smi)
         frame_kernels = phase_frame_kernels(smi)
+        sweeps, sweeps_per_gba = phase_schur_sweep(smi)
         # first on the card after the kernels: warmup() pays the first-use costs
         runs = [run_main_path("resume")]
         phase_solvers(smi)
@@ -2544,18 +2663,20 @@ def main() -> int:
     mono = next(r for r in runs if r["path"] == "mono")
     headline = {"masked_hamming_best2": "main-B 4096x1024",  # local-map tracking
                 "pose_lm": "stageB mono 1024", "orb_detect": "480x640 rendered",
-                "orb_describe": "480x640 rendered", "ba_dense_terms": "mono window"}
+                "orb_describe": "480x640 rendered", "ba_dense_terms": "mono window",
+                "ba_schur_sweep": "point_to_cam kitti 4096000 rows"}
     # the largest difference to the plain version: Hamming and detection
     # exact, the pose, the angle in rad, the dense terms' camera blocks,
     # coupling and cost relative
     errors = {"masked_hamming_best2": max_err, "pose_lm": frame_kernels["pose_lm"][0],
               "orb_detect": frame_kernels["orb_detect"][0],
               "orb_describe": frame_kernels["orb_describe"][0],
-              "ba_dense_terms": dense["ba_dense_terms_err"]}
+              "ba_dense_terms": dense["ba_dense_terms_err"],
+              "ba_schur_sweep": max(t["err"] for t in sweeps.values())}
     shapes = {"masked_hamming_best2": times, "pose_lm": frame_kernels["pose_lm"][1],
               "orb_detect": frame_kernels["orb_detect"][1],
               "orb_describe": frame_kernels["orb_describe"][1],
-              "ba_dense_terms": dense["ba_dense_terms"]}
+              "ba_dense_terms": dense["ba_dense_terms"], "ba_schur_sweep": sweeps}
     per_frame = {  # on the mono path, per tracked frame (the hamming kernel's
         # mapping-pass launches taken out), per image, per mapping pass
         "masked_hamming_best2": (by_path["mono"]["masked_hamming_best2"]
@@ -2563,10 +2684,11 @@ def main() -> int:
         "pose_lm": by_path["mono"]["pose_lm"] / max(mono["n_frame_steps"], 1),
         "orb_detect": by_path["mono"]["orb_detect"] / max(mono["n_calls"]["images"], 1),
         "orb_describe": by_path["mono"]["orb_describe"] / max(mono["n_calls"]["images"], 1),
-        "ba_dense_terms": by_path["mono"]["ba_dense_terms"] / max(mono["n_map_passes"], 1)}
+        "ba_dense_terms": by_path["mono"]["ba_dense_terms"] / max(mono["n_map_passes"], 1),
+        "ba_schur_sweep": sweeps_per_gba}
     per_unit = {"masked_hamming_best2": "tracked frame", "pose_lm": "tracked frame",
                 "orb_detect": "image", "orb_describe": "image",
-                "ba_dense_terms": "mapping pass"}
+                "ba_dense_terms": "mapping pass", "ba_schur_sweep": "run_global_ba"}
     kernels = []
     for kname in KERNEL_SOURCE:
         t = shapes[kname][headline[kname]]

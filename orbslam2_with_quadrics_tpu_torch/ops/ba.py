@@ -10,7 +10,9 @@ S = Hcc - W Hpp^-1 W^T:
   solved by block-Jacobi preconditioned CG (global BA, the quadric joint
   BA, local BA on the CPU, and distributed BA: with a ``group`` every
   segment sum and the cost are summed over the ranks' edge shards, see
-  ``parallel/dist_ba.py``);
+  ``parallel/dist_ba.py``). Its edge sweeps over the coupling blocks
+  (:func:`sweep_cam_to_point`, :func:`sweep_point_to_cam`) are, on a CUDA
+  tensor, the hand-written kernels of ``csrc/ba_schur_sweep.cu``;
 - ``ba_solve_dense``: S built densely over a cam-major [C, N] edge table
   and Cholesky-solved (local BA on the card, where the window's <= ~50
   cameras make S at most ~300 x 300). Its per-edge terms, camera blocks
@@ -92,7 +94,7 @@ def _build_system(prob: BAProblem, huber_delta2: float, lam, group=None):
     bc = _seg(-torch.einsum("ori,or->oi", JcW, e), prob.cam_idx, C, group)
     Hpp = _seg(torch.einsum("ori,orj->oij", JpW, Jp), prob.pnt_idx, P, group)
     bp = _seg(-torch.einsum("ori,or->oi", JpW, e), prob.pnt_idx, P, group)
-    Wcp = torch.einsum("ori,orj->oij", JcW, Jp)                 # [O,6,3]
+    Wcp = torch.einsum("ori,orj->oij", JcW, Jp).contiguous()    # [O,6,3]
 
     eye6 = torch.eye(6, dtype=Hcc.dtype, device=Hcc.device)
     eye3 = torch.eye(3, dtype=Hpp.dtype, device=Hpp.device)
@@ -103,13 +105,189 @@ def _build_system(prob: BAProblem, huber_delta2: float, lam, group=None):
     return Hcc_d, bc, torch.linalg.inv_ex(Hpp_d)[0], bp, Wcp, cost
 
 
-def _schur_matvec(x, prob, Hcc_d, Hpp_inv, Wcp, group=None):
-    """S x = Hcc_d x - W Hpp^-1 W^T x via two edge sweeps."""
-    P, C = prob.points.shape[0], prob.poses.shape[0]
-    t1 = torch.einsum("oij,oi->oj", Wcp, x[prob.cam_idx])
-    y = torch.einsum("pij,pj->pi", Hpp_inv, _seg(t1, prob.pnt_idx, P, group))
-    t2 = torch.einsum("oij,oj->oi", Wcp, y[prob.pnt_idx])
-    return torch.einsum("cij,cj->ci", Hcc_d, x) - _seg(t2, prob.cam_idx, C, group)
+# ---------------------------------------------------------------------------
+# the Schur edge sweeps
+#
+# The PCG's reduced camera system S = Hcc_d - W Hpp^-1 W^T is applied by two
+# sweeps over the edge table's coupling blocks W_o [6, 3]: camera -> point
+# (s = W^T x, summed into the points) and point -> camera (W Hpp^-1 s,
+# summed into the cameras). On the card each is one launch of
+# ``csrc/ba_schur_sweep.cu`` that reads only the live rows (``valid > 0``;
+# a dead row's block is exactly 0); on the CPU the plain versions below.
+# ---------------------------------------------------------------------------
+
+
+class Coupling(NamedTuple):
+    """One LM step's coupling blocks and what the sweeps read beside them.
+    On the card (made once per step by :func:`coupling`): Hpp^-1 with its
+    rows padded to 16 bytes, and ``args``, the kernels' checked addresses
+    and sizes and the context that makes the blocks' card current; both
+    None on the CPU."""
+
+    Wcp: torch.Tensor       # [O,6,3] Jc^T w Jp
+    Hpp_inv: torch.Tensor   # [P,3,3] inverse of the damped point blocks
+    cam_idx: torch.Tensor   # [O] int64
+    pnt_idx: torch.Tensor   # [O] int64
+    valid: torch.Tensor     # [O] float, the rows the kernels read (> 0)
+    n_cams: int
+    Hpp_inv4: torch.Tensor | None  # [P,3,4] on the card
+    args: tuple | None      # (valid, cam, pnt, W, Hpp_inv4 addresses, O, C, P, ctx, index)
+
+
+def coupling(prob: BAProblem, Wcp, Hpp_inv) -> Coupling:
+    """The :class:`Coupling` of ``prob``'s edge table. On a CUDA tensor it
+    checks once what the kernels take and raises on anything else (Wcp
+    float32 [O, 6, 3], contiguous and 16-byte aligned; Hpp^-1 float32
+    [P, 3, 3]; ``valid`` float32 and the indices int64, [O]; all on one
+    card), and pads Hpp^-1's rows to 16 bytes for the point -> camera
+    sweep's loads."""
+    dev = Wcp.device
+    cam, pnt, valid = prob.cam_idx, prob.pnt_idx, prob.valid
+    if dev.type == "cpu":
+        return Coupling(Wcp, Hpp_inv, cam, pnt, valid, prob.poses.shape[0], None, None)
+    if dev.type != "cuda":
+        raise ValueError(f"coupling: unsupported device {dev}")
+    O, C, P = cam.shape[0], prob.poses.shape[0], prob.points.shape[0]
+    cam, pnt, valid = (t.contiguous() for t in (cam, pnt, valid))
+    for name, t, dtype, shape in (("Wcp", Wcp, torch.float32, (O, 6, 3)),
+                                  ("Hpp_inv", Hpp_inv, torch.float32, (P, 3, 3)),
+                                  ("valid", valid, torch.float32, (O,)),
+                                  ("cam_idx", cam, torch.int64, (O,)),
+                                  ("pnt_idx", pnt, torch.int64, (O,))):
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"coupling: {name} is {t.dtype} {tuple(t.shape)} on {t.device}, "
+                             f"expected {dtype} {shape} on {dev}")
+    if not Wcp.is_contiguous() or Wcp.data_ptr() % 16:
+        raise ValueError("coupling: Wcp must be contiguous and 16-byte aligned")
+    hinv4 = torch.nn.functional.pad(Hpp_inv, (0, 1))
+    args = (valid.data_ptr(), cam.data_ptr(), pnt.data_ptr(), Wcp.data_ptr(), hinv4.data_ptr(),
+            O, C, P, *cuda_kernels.launch_device(dev))
+    return Coupling(Wcp, Hpp_inv, cam, pnt, valid, C, hinv4, args)
+
+
+def sweep_cam_to_point_plain(cp: Coupling, x):
+    """Plain version of :func:`sweep_cam_to_point` (one rank's sum)."""
+    t = torch.einsum("oij,oi->oj", cp.Wcp, x[cp.cam_idx])
+    return _seg(t, cp.pnt_idx, cp.Hpp_inv.shape[0])
+
+
+def sweep_point_to_cam_plain(cp: Coupling, s):
+    """Plain version of :func:`sweep_point_to_cam`'s coupling: per camera,
+    the sum over its edges of W_o (Hpp^-1 s)[p_o] (one rank's sum)."""
+    y = torch.einsum("pij,pj->pi", cp.Hpp_inv, s)
+    t = torch.einsum("oij,oj->oi", cp.Wcp, y[cp.pnt_idx])
+    return _seg(t, cp.cam_idx, cp.n_cams)
+
+
+@functools.lru_cache(maxsize=1)
+def _sweep_launchers():
+    """The C entry points of ``csrc/ba_schur_sweep.cu`` (each sweep, and
+    both for S x), typed once."""
+    lib = cuda_kernels.library("ba_schur_sweep")
+    vp, i64 = ctypes.c_void_p, ctypes.c_longlong
+    to_points, to_cams, matvec = (lib.ba_schur_cam_to_point_launch,
+                                  lib.ba_schur_point_to_cam_launch, lib.ba_schur_matvec_launch)
+    to_points.argtypes = [vp] * 6 + [i64, i64, vp]
+    to_cams.argtypes = [vp] * 6 + [i64] + [vp] * 4 + [i64, i64, vp]
+    matvec.argtypes = [vp] * 9 + [i64, i64, i64, vp]
+    for fn in (to_points, to_cams, matvec):
+        fn.restype = ctypes.c_int
+    return to_points, to_cams, matvec
+
+
+def _camera_vector(v, n: int, width: int, dev, what: str):
+    if v.device != dev or v.dtype != torch.float32 or tuple(v.shape) != (n, width):
+        raise ValueError(f"{what} is {v.dtype} {tuple(v.shape)} on {v.device}, expected "
+                         f"float32 {(n, width)} on {dev}")
+    return v.contiguous()
+
+
+def sweep_cam_to_point(cp: Coupling, x, group=None):
+    """[P, 3]: s[p] = sum over the edges o of point p of W_o^T x[c_o], for
+    camera vectors x [C, 6]; summed over ``group``'s ranks. On the card one
+    launch of ``ba_schur_cam_to_point`` (a view of its [P, 4] buffer)."""
+    if cp.args is None:
+        return _all_sum(sweep_cam_to_point_plain(cp, x), group)
+    valid, cam, pnt, W, _, O, C, P, ctx, index = cp.args
+    x = _camera_vector(x, C, 6, cp.Wcp.device, "sweep_cam_to_point: x")
+    s4 = torch.empty((P, 4), dtype=torch.float32, device=x.device)
+    with ctx:
+        err = _sweep_launchers()[0](valid, cam, pnt, W, x.data_ptr(), s4.data_ptr(), O, P,
+                                    torch.cuda.current_stream(index).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ba_schur_sweep (cam -> point) launch failed: cudaError {err}")
+    cuda_kernels.LAUNCHES["ba_schur_sweep"] += 1
+    return _all_sum(s4, group)[:, :3]
+
+
+def sweep_point_to_cam(cp: Coupling, s, base=None, group=None):
+    """[C, 6]: ``base`` [C, 6] (or 0) minus, per camera c, the sum over its
+    edges o of W_o Hpp^-1[p_o] s[p_o], for point vectors s [P, 3]; the sum
+    taken over ``group``'s ranks. On the card one launch of
+    ``ba_schur_point_to_cam``, which adds ``base`` itself only without a
+    ``group``: with one, the ranks' sums are reduced first and ``base``
+    added once after."""
+    if cp.args is not None and group is None:
+        return _point_to_cam_cuda(cp, s, base)
+    if cp.args is None:
+        minus = -_all_sum(sweep_point_to_cam_plain(cp, s), group)
+    else:
+        minus = _all_sum(_point_to_cam_cuda(cp, s, None), group)
+    return minus if base is None else base + minus
+
+
+def _point_to_cam_cuda(cp: Coupling, s, base):
+    valid, cam, pnt, W, hinv4, O, C, P, ctx, index = cp.args
+    dev = cp.Wcp.device
+    if s.device != dev or s.dtype != torch.float32 or tuple(s.shape) != (P, 3) \
+            or s.stride(1) != 1:
+        raise ValueError(f"sweep_point_to_cam: s is {s.dtype} {tuple(s.shape)} (strides "
+                         f"{s.stride()}) on {s.device}, expected float32 ({P}, 3) rows on {dev}")
+    if base is not None:
+        base = _camera_vector(base, C, 6, dev, "sweep_point_to_cam: base")
+    out = torch.empty((C, 6), dtype=torch.float32, device=dev)
+    with ctx:
+        err = _sweep_launchers()[1](
+            valid, cam, pnt, W, hinv4, s.data_ptr(), s.stride(0),
+            None if base is None else base.data_ptr(), None, None, out.data_ptr(), O, C,
+            torch.cuda.current_stream(index).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ba_schur_sweep (point -> cam) launch failed: cudaError {err}")
+    cuda_kernels.LAUNCHES["ba_schur_sweep"] += 1
+    return out
+
+
+def _schur_matvec(x, cp: Coupling, Hcc_d, group=None):
+    """S x = Hcc_d x - W Hpp^-1 W^T x via the two edge sweeps; on the card
+    without a group one call launches both, the second adding Hcc_d x."""
+    if cp.args is None or group is not None:
+        return sweep_point_to_cam(cp, sweep_cam_to_point(cp, x, group),
+                                  base=torch.einsum("cij,cj->ci", Hcc_d, x), group=group)
+    valid, cam, pnt, W, hinv4, O, C, P, ctx, index = cp.args
+    dev = cp.Wcp.device
+    x = _camera_vector(x, C, 6, dev, "_schur_matvec: x")
+    H = _camera_vector(Hcc_d.reshape(C, -1), C, 36, dev, "_schur_matvec: Hcc_d")
+    buf = torch.empty(4 * P + 6 * C, dtype=torch.float32, device=dev)  # s4, then S x
+    with ctx:
+        err = _sweep_launchers()[2](valid, cam, pnt, W, hinv4, H.data_ptr(), x.data_ptr(),
+                                    buf.data_ptr(), buf.data_ptr() + 16 * P, O, C, P,
+                                    torch.cuda.current_stream(index).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ba_schur_sweep (S x) launch failed: cudaError {err}")
+    cuda_kernels.LAUNCHES["ba_schur_sweep"] += 2
+    return buf[4 * P:].view(C, 6)
+
+
+def _schur_rhs(cp: Coupling, bp, base, group=None):
+    """The reduced system's right-hand side: ``base`` (bc) - W Hpp^-1 bp,
+    per camera."""
+    return sweep_point_to_cam(cp, bp, base=base, group=group)
+
+
+def _back_substitute(cp: Coupling, bp, dc, fixed_pnt, group=None):
+    """The points' step dp = Hpp^-1 (bp - W^T dc), 0 at fixed points."""
+    dp = torch.einsum("pij,pj->pi", cp.Hpp_inv, bp - sweep_cam_to_point(cp, dc, group))
+    return dp * (1.0 - fixed_pnt)[:, None]
 
 
 def _pcg(b, matvec, Minv, iters: int):
@@ -133,17 +311,12 @@ def _pcg(b, matvec, Minv, iters: int):
     return x
 
 
-def _schur_rhs(prob, Hpp_inv, bp, Wcp, group=None):
-    """W Hpp^-1 bp accumulated per camera."""
-    y = torch.einsum("pij,pj->pi", Hpp_inv, bp)
-    t = torch.einsum("oij,oj->oi", Wcp, y[prob.pnt_idx])
-    return _seg(t, prob.cam_idx, prob.poses.shape[0], group)
-
-
 def ba_iteration(prob: BAProblem, lam, huber_delta2: float, cg_iters: int, group=None):
     """One damped Gauss-Newton (LM) step. Returns (new_prob, cost, step_ok).
     With a ``group`` the step and its accept test are computed from reduced
-    values only, so every rank takes the same step. Traced as ``ba.step``
+    values only, so every rank takes the same step. On the card a step
+    launches the sweep kernels 2 cg_iters + 2 times (the right-hand side,
+    two a PCG iteration, the back-substitution). Traced as ``ba.step``
     (``rows``, ``live_rows``) over ``ba.system``, ``ba.pcg`` and
     ``ba.update`` (``utils/tracing.py``)."""
     dev = prob.poses.device
@@ -152,18 +325,15 @@ def ba_iteration(prob: BAProblem, lam, huber_delta2: float, cg_iters: int, group
             step.count(rows=prob.valid.shape[0], live_rows=torch.count_nonzero(prob.valid))
         with tracing.span("ba.system", dev):
             Hcc_d, bc, Hpp_inv, bp, Wcp, cost = _build_system(prob, huber_delta2, lam, group)
-            g = bc - _schur_rhs(prob, Hpp_inv, bp, Wcp, group)
+            cp = coupling(prob, Wcp, Hpp_inv)
+            g = _schur_rhs(cp, bp, bc, group)
         with tracing.span("ba.pcg", dev) as sp:
             sp.count(iters=cg_iters)
-            dc = _pcg(g, lambda x: _schur_matvec(x, prob, Hcc_d, Hpp_inv, Wcp, group),
+            dc = _pcg(g, lambda x: _schur_matvec(x, cp, Hcc_d, group),
                       torch.linalg.inv_ex(Hcc_d)[0], cg_iters)
         with tracing.span("ba.update", dev):
             dc = dc * (1.0 - prob.fixed_cam)[:, None]
-            # back-substitute points: dp = Hpp^-1 (bp - W^T dc)
-            t1 = torch.einsum("oij,oi->oj", Wcp, dc[prob.cam_idx])
-            dp = torch.einsum("pij,pj->pi", Hpp_inv,
-                              bp - _seg(t1, prob.pnt_idx, prob.points.shape[0], group))
-            dp = dp * (1.0 - prob.fixed_pnt)[:, None]
+            dp = _back_substitute(cp, bp, dc, prob.fixed_pnt, group)
             cand = prob._replace(poses=lie.se3_retract(prob.poses, dc),
                                  points=prob.points + dp)
             new_cost = _edge_terms(cand, huber_delta2, group)[5]

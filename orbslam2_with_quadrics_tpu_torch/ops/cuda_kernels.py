@@ -25,6 +25,13 @@ Counterpart of the reference's ``ops/pallas_kernels.py``. Each source
   them), and the robust cost alone, replacing the planar, one-hot-matmul
   body of the reference's ``ba._dense_schur_step``. Wrapper in
   ``ops/ba.py`` (``dense_terms``).
+- ``ba_schur_sweep`` — the PCG solver's two edge sweeps over an LM step's
+  coupling blocks (W^T x into the points, W Hpp^-1 y into the cameras),
+  one pass each over the live rows of the edge table. It replaces no TPU
+  kernel (the reference's ``ba._schur_matvec`` is ``jnp.einsum`` +
+  ``segment_sum``): the eager sweep ran at about 1/80 of its bytes bound.
+  Wrapper in ``ops/ba.py`` (``sweep_cam_to_point``,
+  ``sweep_point_to_cam``).
 
 A CPU tensor takes a kernel's plain version; a CUDA tensor launches the
 kernel or raises. Each source is compiled at first use by ``nvcc`` for
@@ -63,7 +70,8 @@ _MAX_Q_PER_BLOCK = 64
 # each multiply and add rounded on its own, as the plain versions'
 # elementwise ops round them
 _FLAGS = {"masked_hamming_best2": (), "pose_lm": ("-fmad=false",), "orb_detect": (),
-          "orb_describe": ("-fmad=false",), "ba_dense_terms": ("-fmad=false",)}
+          "orb_describe": ("-fmad=false",), "ba_dense_terms": ("-fmad=false",),
+          "ba_schur_sweep": ()}
 KERNELS = tuple(_FLAGS)
 
 LAUNCHES = {name: 0 for name in KERNELS}

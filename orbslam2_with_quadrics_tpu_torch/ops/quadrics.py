@@ -216,7 +216,6 @@ def quadric_ba_solve(prob: QuadricBAProblem, Kc, n_iters: int = 10, cg_iters: in
     (prob, final_cost)."""
     base = prob.base
     C, Q = base.poses.shape[0], prob.quad_pose.shape[0]
-    P = base.points.shape[0]
     dt, dev = base.poses.dtype, base.poses.device
     huber_delta2 = residuals.CHI2_STEREO
     eye6 = torch.eye(6, dtype=dt, device=dev)
@@ -226,6 +225,7 @@ def quadric_ba_solve(prob: QuadricBAProblem, Kc, n_iters: int = 10, cg_iters: in
     for _ in range(n_iters):
         base = prob.base
         Hcc_d, bc, Hpp_inv, bp, Wcp, _ = ba._build_system(base, huber_delta2, lam)
+        cp = ba.coupling(base, Wcp, Hpp_inv)
         e_q, Jc_q, Jq_q, w_q, _ = _quadric_terms(prob, Kc)
         JcW = Jc_q * w_q[:, None, None]
         JqW = Jq_q * w_q[:, None, None]
@@ -235,7 +235,7 @@ def quadric_ba_solve(prob: QuadricBAProblem, Kc, n_iters: int = 10, cg_iters: in
         bq = ba._seg(-torch.einsum("eri,er->ei", JqW, e_q), prob.qe_quad, Q)
         Hcc_d = Hcc_d + Hcc_q + lam * Hcc_q * eye6
         Hqq_d = Hqq + lam * Hqq * eye9 + 1e-6 * eye9
-        g_c = bc + bc_q - ba._schur_rhs(base, Hpp_inv, bp, Wcp)
+        g_c = ba._schur_rhs(cp, bp, bc + bc_q)
         Minv_c = torch.linalg.inv_ex(Hcc_d)[0]
         Minv_q = torch.linalg.inv_ex(Hqq_d)[0]
 
@@ -243,7 +243,7 @@ def quadric_ba_solve(prob: QuadricBAProblem, Kc, n_iters: int = 10, cg_iters: in
             xc, xq = x[:C * 6].reshape(C, 6), x[C * 6:].reshape(Q, 9)
             # camera block: the point Schur part (quadric-edge Hcc folded
             # into Hcc_d) + the camera-quadric coupling sum_e Jc^T w Jq
-            yc = ba._schur_matvec(xc, base, Hcc_d, Hpp_inv, Wcp)
+            yc = ba._schur_matvec(xc, cp, Hcc_d)
             tq = torch.einsum("erj,ej->er", Jq_q, xq[prob.qe_quad])
             yc = yc + ba._seg(torch.einsum("eri,er->ei", JcW, tq), prob.qe_cam, C)
             yq = torch.einsum("qij,qj->qi", Hqq_d, xq)
@@ -273,9 +273,7 @@ def quadric_ba_solve(prob: QuadricBAProblem, Kc, n_iters: int = 10, cg_iters: in
         dq = x[C * 6:].reshape(Q, 9)
 
         # back-substitute the points
-        t1 = torch.einsum("oij,oi->oj", Wcp, dc[base.cam_idx])
-        dp = torch.einsum("pij,pj->pi", Hpp_inv, bp - ba._seg(t1, base.pnt_idx, P))
-        dp = dp * (1.0 - base.fixed_pnt)[:, None]
+        dp = ba._back_substitute(cp, bp, dc, base.fixed_pnt)
         new_q = retract(Quadric(prob.quad_pose, prob.quad_scale), dq)
         cand = prob._replace(
             base=base._replace(poses=lie.se3_retract(base.poses, dc), points=base.points + dp),

@@ -92,7 +92,8 @@ class LaunchLog(dict):
         self.stack, self.launches = stack, []
 
     def __setitem__(self, key, value):
-        self.launches.append((key, tuple(self.stack)))
+        # a wrapper may count several launches at once
+        self.launches += [(key, tuple(self.stack))] * (value - self.get(key, 0))
         super().__setitem__(key, value)
 
 

@@ -437,9 +437,10 @@ def test_cpu_routes_launch_nothing():
         inv_sigma2=torch.ones(C * N), valid=torch.ones(C * N), fixed_cam=torch.zeros(C),
         fixed_pnt=torch.zeros(P))
     ba.ba_solve_dense(prob, n_iters=2, n_local_pts=P, cam_grid=(C, N))
+    ba.ba_solve(prob, n_iters=2, cg_iters=3)
     assert all(n == 0 for n in ck.LAUNCHES.values()), ck.LAUNCHES
     assert set(ck.LAUNCHES) == {"masked_hamming_best2", "pose_lm", "orb_detect",
-                                "orb_describe", "ba_dense_terms"}
+                                "orb_describe", "ba_dense_terms", "ba_schur_sweep"}
 
 
 def test_detect_level_is_detect_levels_of_one():
