@@ -25,7 +25,16 @@ Phases (any failure exits non-zero before the result line):
      4,096,000 rows, 65% live; TUM fr1/desk's 512,000, 5.7% live) within
      1e-4 of the sum of their terms' magnitudes of the plain version, and
      its launches in one ``run_global_ba`` exactly steps x (2 x cg_iters +
-     2) = 1,230; and at the timed shapes four times of each:
+     2) = 1,230; the global BA's PCG as one CUDA graph a solve on the
+     benchmark's two maps against the eager PCG from the same step inputs
+     (dc within ``GRAPH_DC_BAR`` of its magnitude, a dropped iteration and
+     each stale buffer caught by that bar), a whole ``run_global_ba`` by
+     both routes (final costs within the cell's ``cost_gap``, 1,230
+     launches each, no memory left allocated, the graph's repeated with no
+     growth of the reserve), and one ``async_gba`` closure on its thread
+     (its solves graphed) while tracking runs, against the same BA inline;
+     and at the timed shapes
+     four times of each:
        kernel_ms  device time of the kernel alone (20 launches captured in a
                   CUDA graph, the replay timed between two events, / 20);
        call_ms    what a caller pays per call on an idle card, the Python
@@ -1183,6 +1192,13 @@ def landmark_ious(slam):
     return out
 
 
+def stream_sync():
+    """Wait for the current stream's work, not the whole device's: the
+    async global BA may be capturing its PCG's CUDA graph on its own thread
+    meanwhile, and a device-wide synchronize fails any capture under way."""
+    torch.cuda.current_stream().synchronize()
+
+
 @contextlib.contextmanager
 def counted_calls(cuda: bool):
     """While the block runs, count the calls that the per-frame launch rule
@@ -1385,11 +1401,11 @@ def run_main_path(name="mono", device="cuda", sync=False, log_every=5, rendered=
 
     def timed_relocalize(self, feats):
         if cuda:
-            torch.cuda.synchronize()
+            stream_sync()
         n0, t0 = ck.LAUNCHES["masked_hamming_best2"], time.perf_counter()
         ok = relocalize(self, feats)
         if cuda:
-            torch.cuda.synchronize()
+            stream_sync()
         relocs.append({"ms": 1e3 * (time.perf_counter() - t0), "recovered": bool(ok),
                        "launches": ck.LAUNCHES["masked_hamming_best2"] - n0})
         return ok
@@ -1397,11 +1413,11 @@ def run_main_path(name="mono", device="cuda", sync=False, log_every=5, rendered=
     def host_timed(fn, key):
         def call(*a, **k):
             if cuda:
-                torch.cuda.synchronize()
+                stream_sync()
             t0 = time.perf_counter()
             out = fn(*a, **k)
             if cuda:
-                torch.cuda.synchronize()
+                stream_sync()
             quad_ms[key].append(1e3 * (time.perf_counter() - t0))
             return out
         return call
@@ -1441,7 +1457,7 @@ def run_main_path(name="mono", device="cuda", sync=False, log_every=5, rendered=
             before = slam.n_loops_closed
             step(*images, timestamp=i / 30.0, detections=dets[i])
             if cuda:
-                torch.cuda.synchronize()
+                stream_sync()
             dt = (time.perf_counter() - t) * 1e3
             all_ms.append(dt)
             states.append(slam.state)
@@ -2397,6 +2413,215 @@ def phase_schur_sweep(smi, dev="cuda"):
     return out, n["ba_schur_sweep"]
 
 
+# the graphed PCG against the eager one from the same step inputs: the
+# largest difference of dc, relative to its largest entry. The sweeps add
+# float32 terms in an atomic order that changes from call to call, and the
+# CG iterations carry that rounding into dc; a dropped iteration or a
+# buffer left at another step's values moves dc by more (the phase shows
+# both beside the bar)
+GRAPH_DC_BAR = 1e-3
+
+
+def bench_map(cell_name: str, seed: int, dev="cuda"):
+    """(cell, MapState, K, bf, level table) of a ``port_bench`` cell, laid out
+    as its global BA entry lays the map out for ``run_global_ba``."""
+    from orbslam2_with_quadrics_tpu_torch.models import map_state as ms
+    from port_bench import harness, maps
+
+    cell = harness.load_cell(cell_name)
+    inp = maps.build(cell.cfg, seed, dev)
+    pools, orb = cell.cfg["pools"], cell.cfg["orb"]
+    mcfg = ms.MapConfig(max_keyframes=int(pools["max_keyframes"]),
+                        max_points=int(pools["max_points"]),
+                        n_features=int(orb["n_features"]), n_levels=int(orb["n_levels"]),
+                        scale_factor=float(orb["scale_factor"]), device=dev)
+    fields = ("kf_pose", "kf_valid", "kf_uv", "kf_ur", "kf_level", "kf_kp_valid",
+              "kf_obs_point", "pt_pos", "pt_valid")
+    m = ms.empty_map(mcfg)._replace(**{f: inp[f] for f in fields})
+    return cell, m, inp["K"], float(inp["bf"]), inp["inv_sigma2"]
+
+
+def pcg_steps(prob):
+    """Two LM steps' PCG inputs (Coupling, Hcc_d, g) on ``prob``: its first
+    step at lam 1e-4, and the step after it at lam 5e-5."""
+    from orbslam2_with_quadrics_tpu_torch.ops import ba, residuals
+
+    out = []
+    for lam in (1e-4, 5e-5):
+        lam_t = torch.tensor(lam, device=prob.poses.device)
+        Hcc_d, bc, Hpp_inv, bp, Wcp, _ = ba._build_system(prob, residuals.CHI2_STEREO, lam_t)
+        cp = ba.coupling(prob, Wcp, Hpp_inv)
+        out.append((cp, Hcc_d, ba._schur_rhs(cp, bp, bc)))
+        prob = ba.ba_iteration(prob, lam_t, residuals.CHI2_STEREO, 40)[0]
+    return out
+
+
+def dc_gap(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def phase_graphed_pcg(smi, dev="cuda", seed=2147483917):
+    """The global BA's PCG as one CUDA graph a ``ba_solve`` call
+    (``ba.GraphedPCG``) on the benchmark's two maps: at two steps' inputs
+    the graph's dc against the eager ``_pcg``'s within ``GRAPH_DC_BAR``, where
+    eager against eager shows the atomics' part, and a dropped iteration (9
+    of 10: 39 of 40 have converged to rounding on TUM) and each buffer left
+    at the other step's values fail the bar; a whole
+    ``run_global_ba`` by both routes (final costs within the cell's
+    ``cost_gap``, exactly 1,230 sweep launches each, peak memory, host ms,
+    the allocated memory back after the call, and the reserve after each,
+    which three more graph runs must not grow: each solve's graph and its
+    memory pool are freed when it returns); the copy of W into the graph's
+    buffer timed. Then one ``async_gba`` closure: ``System._launch_global_ba``
+    on its thread and stream (its solves graphed) while the main thread
+    tracks, against the same BA inline."""
+    from orbslam2_with_quadrics_tpu_torch.models import local_mapping as lm
+    from orbslam2_with_quadrics_tpu_torch.ops import ba
+    from orbslam2_with_quadrics_tpu_torch.ops import cuda_kernels as ck
+
+    out = {}
+    for cell_name in ("kitti00_stereo.gba", "tum_fr1_desk_rgbd.gba"):
+        cell, m, Kc, bf, tab = bench_map(cell_name, seed, dev)
+        prob = lm.global_ba_problem(m, Kc, bf, tab)
+        (cp_a, H_a, g_a), (cp_b, H_b, g_b) = pcg_steps(prob)
+        eager = [ba._pcg(g, lambda x: ba._schur_matvec(x, cp, H), torch.linalg.inv_ex(H)[0], n)
+                 for cp, H, g, n in ((cp_a, H_a, g_a, 40), (cp_a, H_a, g_a, 40),
+                                     (cp_a, H_a, g_a, 39), (cp_b, H_b, g_b, 40))]
+        # where 40 iterations have converged to float32 rounding, 39 give the
+        # same dc: a dropped iteration is shown at 10, where each one counts
+        short = ba.GraphedPCG(10)
+        ten = [ba._pcg(g_a, lambda x: ba._schur_matvec(x, cp_a, H_a),
+                       torch.linalg.inv_ex(H_a)[0], n) for n in (10, 9)]
+        pcg = ba.GraphedPCG(40)
+        graph_a = pcg(cp_a, H_a, g_a).clone()
+        graph_b = pcg(cp_b, H_b, g_b).clone()
+        gaps = {"eager twice": dc_gap(eager[1], eager[0]),
+                "graph step 1": dc_gap(graph_a, eager[0]),
+                "graph step 2": dc_gap(graph_b, eager[3]),
+                "graph of 10": dc_gap(short(cp_a, H_a, g_a), ten[0]),
+                "39 of 40 iterations": dc_gap(eager[2], eager[0]),
+                "9 of 10 iterations": dc_gap(ten[1], ten[0])}
+        short.close()
+        # each buffer left at step 1's values under step 2's others
+        stale = {"g": (g_a, None, None), "Hcc_d": (None, H_a, None), "W": (None, None, cp_a)}
+        for what, (g_s, H_s, cp_s) in stale.items():
+            pcg.load(cp_b, H_b, g_b)
+            if g_s is not None:
+                pcg.g.copy_(g_s)
+            if H_s is not None:
+                pcg.H.copy_(H_s)
+            if cp_s is not None:
+                pcg.cp.Wcp.copy_(cp_s.Wcp)
+            gaps[f"stale {what}"] = dc_gap(pcg.run(), eager[3])
+        pcg.load(cp_b, H_b, g_b)
+        pcg.Minv.copy_(torch.linalg.inv_ex(H_a)[0])
+        gaps["stale Hcc_d^-1"] = dc_gap(pcg.run(), eager[3])
+        pcg.load(cp_b, H_b, g_b)
+        pcg.cp.Hpp_inv4.copy_(cp_a.Hpp_inv4)
+        gaps["stale Hpp^-1"] = dc_gap(pcg.run(), eager[3])
+        # the copy of W into the buffer, as each step makes it
+        w_copy_ms = cuda_median_ms(lambda: pcg.cp.Wcp.copy_(cp_b.Wcp), reps=10)
+        pcg.close()
+        log(f"[graph] {cell_name}: dc gaps (of max |dc|) {json.dumps(gaps)}; the bar "
+            f"{GRAPH_DC_BAR}; W copy {w_copy_ms:.4f} ms ({cp_b.Wcp.numel() * 4 / 1e6:.1f} MB) "
+            f"({smi})")
+        if not all(gaps[k] <= GRAPH_DC_BAR for k in ("graph step 1", "graph step 2",
+                                                      "graph of 10")):
+            raise AssertionError(f"graphed PCG against eager at {cell_name}: {gaps}")
+        missed = [k for k, v in gaps.items() if k.startswith(("9 of", "stale")) and
+                  not v > GRAPH_DC_BAR]
+        if missed:
+            raise AssertionError(f"the dc bar {GRAPH_DC_BAR} does not catch {missed}: {gaps}")
+        del cp_a, cp_b, H_a, H_b, g_a, g_b, eager, graph_a, graph_b, prob
+
+        # whole run_global_ba by each route; the graph's thrice more, to
+        # see its memory pools freed with it: the reserve does not grow
+        res = {}
+        route = ba.pcg_route
+        for name in ("graph", "eager", "graph", "eager", "graph", "graph", "graph"):
+            ba.pcg_route = route if name == "graph" else (lambda prob, cg_iters, group=None: None)
+            try:
+                torch.cuda.synchronize()
+                alloc0, n0 = torch.cuda.memory_allocated(), ck.LAUNCHES["ba_schur_sweep"]
+                torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+                m2, cost = lm.run_global_ba(m, Kc, bf, tab, n_iters=int(cell.mix["n_iters"]))
+                torch.cuda.synchronize()
+                ms_ = 1e3 * (time.perf_counter() - t)
+                r = {"ms": ms_, "cost": float(cost),
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "launches": ck.LAUNCHES["ba_schur_sweep"] - n0}
+                del m2, cost
+                torch.cuda.synchronize()
+                r["alloc_left"] = torch.cuda.memory_allocated() - alloc0
+                r["reserved_gb"] = torch.cuda.memory_reserved() / 1e9
+            finally:
+                ba.pcg_route = route
+            res.setdefault(name, []).append(r)
+        gap = abs(res["graph"][1]["cost"] - res["eager"][1]["cost"]) / res["eager"][1]["cost"]
+        grew = res["graph"][-1]["reserved_gb"] - res["graph"][1]["reserved_gb"]
+        log(f"[graph] {cell_name}: run_global_ba graph {json.dumps(res['graph'])} eager "
+            f"{json.dumps(res['eager'])}; final cost gap {gap:.3e} (cost_gap limit "
+            f"{cell.limits['cost_gap']}); reserve grown over the last three graph runs "
+            f"{grew:.6f} GB ({smi})")
+        runs = res["graph"] + res["eager"]
+        if not gap <= float(cell.limits["cost_gap"]) or any(r["launches"] != 1230 for r in runs) \
+                or any(r["alloc_left"] != 0 for r in runs) or grew > 0:
+            raise AssertionError(f"run_global_ba by graph and eager at {cell_name}: {res}, "
+                                 f"cost gap {gap}")
+        out[cell_name] = {"gaps": gaps, "w_copy_ms": w_copy_ms, "runs": res, "cost_gap": gap}
+    out["async"] = async_gba_closure(smi, dev)
+    return out
+
+
+def async_gba_closure(smi, dev="cuda"):
+    """One ``async_gba`` closure: the rgbd path's System tracks 20 frames,
+    launches the global BA on its thread and stream (``_launch_global_ba``,
+    as a loop closure does; its 15 LM steps replay their solve's PCG
+    graph, by the ``ba.pcg`` spans) and tracks 20 more meanwhile, each followed by a synchronize of
+    the tracking stream (the merge held back); the thread's map against
+    ``run_global_ba`` of the same snapshot inline, by ``ba_agreement``'s
+    bars."""
+    from orbslam2_with_quadrics_tpu_torch.models import local_mapping as lm
+    from orbslam2_with_quadrics_tpu_torch.models import system as sysm
+    from orbslam2_with_quadrics_tpu_torch.utils import tracing
+
+    spec = dict(PATHS["rgbd"])
+    cfg, frames, _ = main_path_setup(dev, n_features=spec.pop("n_features"),
+                                     n_levels=spec.pop("n_levels"), sys_kw=spec.pop("sys_kw"),
+                                     **render_args("rgbd"))
+    slam = sysm.System(cfg)
+    for i, images in enumerate(frames[:20]):
+        slam.track_rgbd(*images, timestamp=i / 30.0)
+    slam._apply_gba_if_ready = lambda wait=False: None  # the merge held back
+    overlapped = 0
+    with tracing.collect() as spans:
+        slam._launch_global_ba(0)
+        for i, images in enumerate(frames[20:], 20):
+            slam.track_rgbd(*images, timestamp=i / 30.0)
+            stream_sync()
+            overlapped += slam._gba_thread.is_alive()
+        slam._gba_thread.join()
+    torch.cuda.synchronize()
+    graphed = [s["counts"]["graphed"] for s in spans if s["name"] == "ba.pcg"]
+    snap, m2, _ = slam._gba_result
+    inline, _ = lm.run_global_ba(snap, slam._K, float(cfg.frontend.bf), slam._inv_sigma2,
+                                 n_iters=10)
+    kf, pt = snap.kf_valid, snap.pt_valid
+    dp, dx, _, ok = ba_agreement(m2.kf_pose[kf].cpu().numpy(), m2.pt_pos[pt].cpu().numpy(), 0.0,
+                                 inline.kf_pose[kf].cpu().numpy(),
+                                 inline.pt_pos[pt].cpu().numpy(), 0.0)
+    moved = float((inline.kf_pose[kf] - snap.kf_pose[kf]).abs().max())
+    r = {"keyframes": int(kf.sum()), "points": int(pt.sum()), "pose_gap": dp, "point_gap": dx,
+         "moved": moved, "frames_during": overlapped, "state": int(slam.state),
+         "pcg_graphed": graphed}
+    log(f"[graph] async_gba closure on its thread while tracking: {json.dumps(r)} ({smi})")
+    slam.shutdown()
+    if not ok or r["state"] != sysm.System.OK or moved == 0.0 or graphed != [1] * 15:
+        raise AssertionError(f"async global BA against inline: {r}")
+    return r
+
+
 def mono_window(mono):
     """(prob0, (C, N), L, cam_ok): the local-BA problem of the last
     keyframe's window of the mono path's map (``run_main_path("mono")``'s
@@ -2630,6 +2855,7 @@ def main() -> int:
         # first on the card after the kernels: warmup() pays the first-use costs
         runs = [run_main_path("resume")]
         phase_solvers(smi)
+        phase_graphed_pcg(smi)
         runs += [run_main_path("capacity"), run_main_path("capacity", sync=True),
                  run_main_path("mono")]
         dense = phase_dense_ba(runs[-1], smi)

@@ -339,6 +339,22 @@ def _dense_schedule(prob, cam_grid, first_iters: int, second_iters: int, terms=N
                              use_huber=False, cam_grid=cam_grid, terms=terms)
 
 
+def global_ba_problem(m: ms.MapState, Kc, bf, inv_sigma2_tab) -> ba.BAProblem:
+    """The global BA's problem: the whole [K, N] observation table, one edge
+    a row, the live ones valid; keyframe 0 and empty slots fixed."""
+    K = m.kf_obs_point.shape[0]
+    _, pnt, okobs = _valid_obs(m)
+    ar = torch.arange(K, device=m.pt_pos.device)
+    uvr, is_st, is2, cam_idx = _edge_table(m, ar, inv_sigma2_tab)
+    return ba.BAProblem(
+        poses=m.kf_pose, points=m.pt_pos, K=Kc, bf=bf, cam_idx=cam_idx,
+        pnt_idx=pnt.reshape(-1), uvr=uvr, is_stereo=is_st, inv_sigma2=is2,
+        valid=okobs.reshape(-1).to(torch.float32),
+        fixed_cam=((~m.kf_valid) | (ar == 0)).to(torch.float32),
+        fixed_pnt=(~m.pt_valid).to(torch.float32),
+    )
+
+
 def run_global_ba(m: ms.MapState, Kc, bf, inv_sigma2_tab, n_iters: int = 10):
     """Global BA: every valid keyframe free (keyframe 0 fixed as gauge) and
     every valid point free, over the full [K,N] observation table. Traced
@@ -348,17 +364,9 @@ def run_global_ba(m: ms.MapState, Kc, bf, inv_sigma2_tab, n_iters: int = 10):
     with tracing.span("gba.solve", dev) as sp:
         sp.count(rows=K * N)
         with tracing.span("gba.build", dev):
-            _, pnt, okobs = _valid_obs(m)
-            ar = torch.arange(K, device=dev)
-            uvr, is_st, is2, cam_idx = _edge_table(m, ar, inv_sigma2_tab)
-            prob = ba.BAProblem(
-                poses=m.kf_pose, points=m.pt_pos, K=Kc, bf=bf, cam_idx=cam_idx,
-                pnt_idx=pnt.reshape(-1), uvr=uvr, is_stereo=is_st, inv_sigma2=is2,
-                valid=okobs.reshape(-1).to(torch.float32),
-                fixed_cam=((~m.kf_valid) | (ar == 0)).to(torch.float32),
-                fixed_pnt=(~m.pt_valid).to(torch.float32),
-            )
+            prob = global_ba_problem(m, Kc, bf, inv_sigma2_tab)
         prob, cost = _schedule(prob, 5, n_iters)
+        ar = torch.arange(K, device=dev)
         kf_pose = torch.where((m.kf_valid & (ar != 0))[:, None], prob.poses, m.kf_pose)
         pt_pos = torch.where(m.pt_valid[:, None], prob.points, m.pt_pos)
         return m._replace(kf_pose=kf_pose, pt_pos=pt_pos), cost

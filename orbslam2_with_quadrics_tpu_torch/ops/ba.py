@@ -12,7 +12,9 @@ S = Hcc - W Hpp^-1 W^T:
   segment sum and the cost are summed over the ranks' edge shards, see
   ``parallel/dist_ba.py``). Its edge sweeps over the coupling blocks
   (:func:`sweep_cam_to_point`, :func:`sweep_point_to_cam`) are, on a CUDA
-  tensor, the hand-written kernels of ``csrc/ba_schur_sweep.cu``;
+  tensor, the hand-written kernels of ``csrc/ba_schur_sweep.cu``, and on
+  the card without a group its PCG is one CUDA graph a solve, replayed at
+  every LM step (:class:`GraphedPCG`);
 - ``ba_solve_dense``: S built densely over a cam-major [C, N] edge table
   and Cholesky-solved (local BA on the card, where the window's <= ~50
   cameras make S at most ~300 x 300). Its per-edge terms, camera blocks
@@ -26,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -311,14 +314,146 @@ def _pcg(b, matvec, Minv, iters: int):
     return x
 
 
-def ba_iteration(prob: BAProblem, lam, huber_delta2: float, cg_iters: int, group=None):
+# ---------------------------------------------------------------------------
+# the PCG as one CUDA graph per solve
+#
+# Within one ``ba_solve`` call the PCG's inputs keep their shapes and the
+# rows its sweeps read stay the same, so on the card (and without a group,
+# whose all_reduce a graph cannot hold) the call's first LM step captures
+# all of ``_pcg``'s iterations over buffers the solve owns, and every step,
+# the first included, copies its inputs into them and replays the graph:
+# one launch a step in place of ~20 a PCG iteration. The captured kernels
+# are eager ``_pcg``'s, in its order, on the same values.
+# ---------------------------------------------------------------------------
+
+
+def pcg_route(prob: BAProblem, cg_iters: int, group=None):
+    """The :class:`GraphedPCG` of one ``ba_solve`` call, or None where its
+    steps run the eager :func:`_pcg`: CPU tensors, or a ``group``."""
+    if group is not None or prob.poses.device.type != "cuda":
+        return None
+    return GraphedPCG(cg_iters)
+
+
+_capture_places = threading.local()
+
+
+def _capture_place(dev):
+    """(capture stream, pool keeper) of this thread for graphs replayed on
+    ``dev``'s current stream: a side stream (the legacy default stream
+    cannot be captured), and one memory pool that the thread's captures for
+    that stream reuse, each after the last solve's graph was freed, so that
+    graphs sharing it replay one after another on one stream. The pool is
+    held by a graph that is never replayed (one fill): a pool lives while a
+    graph holds it, and a shared ``torch.cuda.MemPool`` fails the host
+    allocator's check at its second capture. A pool of each capture's own
+    would be freed with its graph but stay reserved, 23 MB a capture, until
+    ``empty_cache``; releasing it at once synchronizes the device."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    key = (index, torch.cuda.current_stream(index).cuda_stream)
+    places = _capture_places.__dict__.setdefault("places", {})
+    if key not in places:
+        stream, keeper = torch.cuda.Stream(index), torch.cuda.CUDAGraph()
+        with torch.cuda.device(index), torch.cuda.stream(stream):
+            keeper.capture_begin(capture_error_mode="thread_local")
+            torch.zeros(1, device=f"cuda:{index}")
+            keeper.capture_end()
+        places[key] = (stream, keeper)
+    return places[key]
+
+
+class GraphedPCG:
+    """The PCG of one ``ba_solve`` call as a CUDA graph. Its buffers hold a
+    step's right-hand side g, Hcc_d, the preconditioner Hcc_d^-1 and the
+    coupling blocks W and Hpp^-1 (the sweeps' rows, cameras and points are
+    the problem's, fixed for the call); :meth:`load` fills them in place,
+    :meth:`run` captures :func:`_pcg` over them at the call's first step
+    and replays it (``cg_iters`` iterations, 2 ``cg_iters`` sweep launches
+    counted a replay). :meth:`close` frees the graph and the buffers."""
+
+    def __init__(self, cg_iters: int):
+        self.iters = cg_iters
+        self.graph = None
+        self.cp = self.H = self.Minv = self.g = self.x = None
+
+    def load(self, cp: Coupling, Hcc_d, g):
+        """Copy one step's inputs into the buffers (made at the first
+        step, laid out as that step's tensors)."""
+        Minv = torch.linalg.inv_ex(Hcc_d)[0]
+        if self.cp is None:
+            W = torch.empty_like(cp.Wcp)
+            if cp.args is None:
+                self.cp = cp._replace(Wcp=W, Hpp_inv=torch.empty_like(cp.Hpp_inv))
+            else:
+                h4 = torch.empty_like(cp.Hpp_inv4)
+                self.cp = cp._replace(Wcp=W, Hpp_inv=h4[..., :3], Hpp_inv4=h4,
+                                      args=cp.args[:3] + (W.data_ptr(), h4.data_ptr())
+                                      + cp.args[5:])
+            self.H, self.Minv, self.g = (torch.empty_like(t) for t in (Hcc_d, Minv, g))
+        self.cp.Wcp.copy_(cp.Wcp)
+        if cp.args is None:
+            self.cp.Hpp_inv.copy_(cp.Hpp_inv)
+        else:
+            self.cp.Hpp_inv4.copy_(cp.Hpp_inv4)
+        self.H.copy_(Hcc_d)
+        self.Minv.copy_(Minv)
+        self.g.copy_(g)
+
+    def body(self):
+        """The PCG over the buffers: what the graph holds."""
+        return _pcg(self.g, lambda x: _schur_matvec(x, self.cp, self.H), self.Minv, self.iters)
+
+    def _capture(self):
+        """Record :meth:`body` into a graph on this thread's capture stream
+        and pool (``thread_local``: other threads keep launching meanwhile);
+        sets ``x``, the graph's output."""
+        dev = self.g.device
+        stream, keeper = _capture_place(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            # cuBLAS makes its workspace for a stream at first use: here,
+            # outside the graph's pool
+            torch.einsum("cij,cj->ci", self.Minv, self.g)
+            graph.capture_begin(pool=keeper.pool(), capture_error_mode="thread_local")
+            try:
+                self.x = self.body()
+            finally:
+                graph.capture_end()
+        # recorded, not launched: each replay counts them
+        cuda_kernels.LAUNCHES["ba_schur_sweep"] -= 2 * self.iters
+        return graph
+
+    def run(self):
+        """dc of the loaded step: the graph's replay on the current stream."""
+        if self.graph is None:
+            self.graph = self._capture()
+        self.graph.replay()
+        cuda_kernels.LAUNCHES["ba_schur_sweep"] += 2 * self.iters
+        return self.x
+
+    def __call__(self, cp: Coupling, Hcc_d, g):
+        self.load(cp, Hcc_d, g)
+        return self.run()
+
+    def close(self):
+        self.x = None
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.cp = self.H = self.Minv = self.g = None
+
+
+def ba_iteration(prob: BAProblem, lam, huber_delta2: float, cg_iters: int, group=None,
+                 pcg=None):
     """One damped Gauss-Newton (LM) step. Returns (new_prob, cost, step_ok).
     With a ``group`` the step and its accept test are computed from reduced
-    values only, so every rank takes the same step. On the card a step
-    launches the sweep kernels 2 cg_iters + 2 times (the right-hand side,
-    two a PCG iteration, the back-substitution). Traced as ``ba.step``
-    (``rows``, ``live_rows``) over ``ba.system``, ``ba.pcg`` and
-    ``ba.update`` (``utils/tracing.py``)."""
+    values only, so every rank takes the same step. ``pcg``: the solve's
+    :class:`GraphedPCG` (:func:`pcg_route`), or None for the eager
+    :func:`_pcg`. On the card a step launches the sweep kernels 2 cg_iters +
+    2 times (the right-hand side, two a PCG iteration, the
+    back-substitution). Traced as ``ba.step`` (``rows``, ``live_rows``)
+    over ``ba.system``, ``ba.pcg`` (``iters``, ``graphed``: 1 where the PCG
+    was a graph's replay) and ``ba.update`` (``utils/tracing.py``)."""
     dev = prob.poses.device
     with tracing.span("ba.step", dev) as step:
         if step:
@@ -328,9 +463,12 @@ def ba_iteration(prob: BAProblem, lam, huber_delta2: float, cg_iters: int, group
             cp = coupling(prob, Wcp, Hpp_inv)
             g = _schur_rhs(cp, bp, bc, group)
         with tracing.span("ba.pcg", dev) as sp:
-            sp.count(iters=cg_iters)
-            dc = _pcg(g, lambda x: _schur_matvec(x, cp, Hcc_d, group),
-                      torch.linalg.inv_ex(Hcc_d)[0], cg_iters)
+            sp.count(iters=cg_iters, graphed=int(pcg is not None))
+            if pcg is None:
+                dc = _pcg(g, lambda x: _schur_matvec(x, cp, Hcc_d, group),
+                          torch.linalg.inv_ex(Hcc_d)[0], cg_iters)
+            else:
+                dc = pcg(cp, Hcc_d, g)
         with tracing.span("ba.update", dev):
             dc = dc * (1.0 - prob.fixed_cam)[:, None]
             dp = _back_substitute(cp, bp, dc, prob.fixed_pnt, group)
@@ -352,17 +490,24 @@ def ba_solve(prob: BAProblem, n_iters: int = 10, cg_iters: int = 40,
              use_huber: bool = True, group=None):
     """Run ``n_iters`` LM steps. Returns (prob, final_cost). ``group``: a
     ``torch.distributed`` process group over which ``prob``'s edges are
-    sharded (poses and points whole on every rank), or None. Traced as
+    sharded (poses and points whole on every rank), or None. On the card
+    without a group the steps replay one CUDA graph of the PCG
+    (:func:`pcg_route`), freed when the call returns. Traced as
     ``ba.solve`` (``steps``)."""
     huber_delta2 = residuals.CHI2_STEREO if use_huber else 0.0
-    with tracing.span("ba.solve", prob.poses.device) as sp:
-        sp.count(steps=n_iters)
-        cost = _edge_terms(prob, huber_delta2, group)[5]
-        lam = torch.full((), 1e-4, dtype=prob.poses.dtype, device=prob.poses.device)
-        for _ in range(n_iters):
-            prob, cost, ok = ba_iteration(prob, lam, huber_delta2, cg_iters, group)
-            lam = torch.clamp(torch.where(ok, lam * 0.5, lam * 4.0), 1e-8, 1e8)
-        return prob, cost
+    pcg = pcg_route(prob, cg_iters, group)
+    try:
+        with tracing.span("ba.solve", prob.poses.device) as sp:
+            sp.count(steps=n_iters)
+            cost = _edge_terms(prob, huber_delta2, group)[5]
+            lam = torch.full((), 1e-4, dtype=prob.poses.dtype, device=prob.poses.device)
+            for _ in range(n_iters):
+                prob, cost, ok = ba_iteration(prob, lam, huber_delta2, cg_iters, group, pcg)
+                lam = torch.clamp(torch.where(ok, lam * 0.5, lam * 4.0), 1e-8, 1e8)
+            return prob, cost
+    finally:
+        if pcg is not None:
+            pcg.close()
 
 
 def edge_chi2(prob: BAProblem):

@@ -7,7 +7,9 @@ the plain sweeps, ``_schur_matvec`` built from them, ``_schur_rhs`` and the
 back-substitution against a dense S = Hcc_d - W Hpp^-1 W^T assembled from
 the same blocks, to 1e-9; on a camera-major table with dead rows, a
 shuffled camera order, fixed cameras and points, and a point that no live
-row touches.
+row touches. The PCG as one CUDA graph a solve (``ba.GraphedPCG``): its
+buffers' eager body against ``_pcg``, the route each caller takes, and
+whole solves by each route with a stand-in for the card and the capture.
 
 On the card (``cuda`` marker, no JAX: ``python -m pytest -o addopts=""
 tests/test_torch_schur_sweep.py -m cuda``): the kernels against a float64
@@ -16,8 +18,12 @@ terms' magnitudes (float32 sums of up to a few hundred terms, in an atomic
 order that changes from run to run), where the plain version on the card
 is held to the same bar; warps that straddle two and more cameras; dead
 rows whose blocks are NaN (never read); the init folded in or not; the
-launches per ``ba_solve``; what the kernels do not take raises.
+launches per ``ba_solve``; what the kernels do not take raises; the
+graphed PCG against eager, freed with its solve.
 """
+
+import functools
+import types
 
 import numpy as np
 import pytest
@@ -179,6 +185,152 @@ def test_solve_is_unchanged_by_the_sweeps_on_the_cpu():
 
 
 # ---------------------------------------------------------------------------
+# the PCG as one CUDA graph a solve (ba.GraphedPCG): the body it captures,
+# run eagerly over its buffers, and the route each caller takes
+# ---------------------------------------------------------------------------
+
+def eager_dc(cp, Hcc_d, g, iters):
+    return ba._pcg(g, lambda x: ba._schur_matvec(x, cp, Hcc_d), torch.linalg.inv_ex(Hcc_d)[0],
+                   iters)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_graphed_pcg_buffers_give_the_eager_dc(name):
+    """The buffers filled from a step, then refilled from another step
+    (moved poses and points, another damping), give eager ``_pcg``'s dc of
+    each step bit for bit: no input is left stale."""
+    prob = problem(name, torch.float32)
+    pcg = ba.GraphedPCG(25)
+    for lam, shift in ((1e-3, 0.0), (4e-2, 0.05)):
+        p = prob._replace(points=prob.points + shift, poses=lie.se3_retract(
+            prob.poses, torch.full_like(prob.poses[:, :6], shift)))
+        Hcc_d, bc, Hpp_inv, bp, Wcp, _ = ba._build_system(p, 5.991, torch.tensor(lam))
+        cp = ba.coupling(p, Wcp, Hpp_inv)
+        g = ba._schur_rhs(cp, bp, bc)
+        pcg.load(cp, Hcc_d, g)
+        assert torch.equal(pcg.body(), eager_dc(cp, Hcc_d, g, 25))
+        assert not any(t is u for t, u in ((pcg.g, g), (pcg.H, Hcc_d), (pcg.cp.Wcp, Wcp)))
+    pcg.close()
+    assert pcg.cp is None and pcg.g is None and pcg.x is None
+
+
+def quadric_problem(base):
+    """``base`` with one ellipsoid in front of its cameras, a box in each
+    camera (its projection, 2 px off) and the landmark moved off."""
+    from orbslam2_with_quadrics_tpu_torch.ops import quadrics
+
+    C = base.poses.shape[0]
+    q = quadrics.Quadric(torch.tensor([1.0, 0.0, 0.0, 0.0, 0.75, 0.0, 6.0]),
+                         torch.tensor([0.3, 0.2, 0.25]))
+    boxes, ok = quadrics.project_bbox(quadrics.Quadric(q.pose.expand(C, 7), q.scale.expand(C, 3)),
+                                      base.poses, base.K)
+    assert bool(ok.all())
+    return quadrics.QuadricBAProblem(
+        base=base, quad_pose=(q.pose + torch.tensor([0, 0, 0, 0, 0.05, -0.03, 0.1]))[None],
+        quad_scale=q.scale[None] * 1.1, qe_cam=torch.arange(C),
+        qe_quad=torch.zeros(C, dtype=torch.int64), qe_bbox=boxes + 2.0, qe_valid=torch.ones(C),
+        qe_w=torch.full((C,), 1e-2))
+
+
+def on_card(prob):
+    """``prob`` as :func:`ba.pcg_route` sees a problem on the card: its poses'
+    device says cuda (the route reads nothing else of it)."""
+    return prob._replace(poses=types.SimpleNamespace(device=torch.device("cuda", 0)))
+
+
+@pytest.fixture
+def pcg_graph_stand_in(monkeypatch):
+    """The card's route of ``ba_solve`` off the card: ``ba.pcg_route``
+    answers as for a problem on the card (a ``group`` still decides), and
+    the CUDA graph of ``GraphedPCG._capture`` is a stand-in whose "replay"
+    runs the body the graph would hold, eagerly over the solve's buffers,
+    into the one output tensor, as a graph writes its output in place.
+    Returns the stand-ins made, one a capture, each with its ``pcg`` and
+    ``replays``."""
+    made = []
+
+    class Replay:
+        def __init__(self, pcg):
+            self.pcg, self.replays = pcg, 0
+            pcg.x = torch.empty_like(pcg.g)
+
+        def replay(self):
+            self.pcg.x.copy_(self.pcg.body())
+            self.replays += 1
+
+        def reset(self):
+            pass
+
+    def capture(pcg):
+        made.append(Replay(pcg))
+        return made[-1]
+
+    route = ba.pcg_route
+    monkeypatch.setattr(ba, "pcg_route",
+                        lambda prob, cg_iters, group=None: route(on_card(prob), cg_iters, group))
+    monkeypatch.setattr(ba.GraphedPCG, "_capture", capture)
+    return made
+
+
+@pytest.mark.parametrize("device,group", [("cpu", None), ("cuda", None), ("cuda", "a group"),
+                                          ("cpu", "a group")])
+def test_pcg_route(device, group):
+    """A ``ba_solve`` call's PCG is a graph only for a problem on the card
+    without a ``group``; CPU tensors and a group (whose all_reduce a graph
+    cannot hold) take the eager ``_pcg``. The device is stubbed: the route
+    makes the graph's object, and nothing of it runs until the first step."""
+    prob = problem("fixed cameras and points", torch.float32)
+    if device == "cuda":
+        prob = on_card(prob)
+    got = ba.pcg_route(prob, 12, group)
+    if device == "cuda" and group is None:
+        assert isinstance(got, ba.GraphedPCG) and got.iters == 12 and got.graph is None
+    else:
+        assert got is None
+
+
+@pytest.mark.parametrize("route", ["cpu", "card", "card with a group",
+                                   "quadric_ba_solve on the card"])
+def test_solve_takes_its_pcg_route(route, monkeypatch, request):
+    """Whole solves by each route (on the card with the graph's eager
+    stand-in): on the card without a group one capture a ``ba_solve`` call,
+    a replay a step, freed when the call returns, 2 cg_iters sweep launches
+    counted a replay, the ``ba.pcg`` spans' ``graphed`` 1, and the solve
+    bit-equal to the eager one. CPU tensors, a ``group`` (a world of one:
+    its sums leave a tensor as it is) and ``quadric_ba_solve``'s own CG loop
+    take the eager PCG."""
+    from orbslam2_with_quadrics_tpu_torch.ops import quadrics
+    from orbslam2_with_quadrics_tpu_torch.utils import tracing
+
+    prob = problem("fixed cameras and points", torch.float32)
+    steps, iters = 3, 12
+    if route.startswith("quadric"):
+        qprob = quadric_problem(prob)
+        solve = lambda: quadrics.quadric_ba_solve(  # noqa: E731
+            qprob, prob.K, n_iters=steps, cg_iters=iters)
+    else:
+        solve = functools.partial(ba.ba_solve, prob, n_iters=steps, cg_iters=iters)
+    want = solve()                                   # eager, on the CPU
+    if route.endswith("group"):
+        monkeypatch.setattr(ba.dist, "all_reduce", lambda t, op=None, group=None: None)
+        solve = functools.partial(solve, group=object())
+    made = [] if route == "cpu" else request.getfixturevalue("pcg_graph_stand_in")
+    before = ck.LAUNCHES["ba_schur_sweep"]
+    with tracing.collect() as spans:
+        got = solve()
+    graphed = [s["counts"]["graphed"] for s in spans if s["name"] == "ba.pcg"]
+    assert all(torch.equal(a, b) for a, b in zip(torch.utils._pytree.tree_leaves(got),
+                                                 torch.utils._pytree.tree_leaves(want)))
+    if route == "card":
+        assert [(r.replays, r.pcg.graph, r.pcg.g) for r in made] == [(steps, None, None)]
+        assert ck.LAUNCHES["ba_schur_sweep"] - before == steps * 2 * iters
+        assert graphed == [1] * steps
+    else:
+        assert made == [] and ck.LAUNCHES["ba_schur_sweep"] == before
+        assert graphed == ([] if route.startswith("quadric") else [0] * steps)
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
@@ -301,3 +453,32 @@ def test_kernels_raise_on_what_they_do_not_take(cuda_device, what):
         else:
             ba.sweep_point_to_cam(cp, s.cpu())
     assert ba.sweep_cam_to_point(cp, x).shape == (P, 3)  # the same call, taken
+
+
+@pytest.mark.cuda
+def test_graphed_pcg_on_card(cuda_device):
+    """On the card: the solve's graph, captured at its first step and
+    replayed at a second step's inputs, gives each step's eager ``_pcg`` dc
+    within 1e-4 of its magnitude (the sweeps' atomics reorder float32 sums);
+    a ``ba_solve`` call's graph and buffers are freed when it returns (the
+    allocated memory back where it was) and its sweeps counted as launched."""
+    prob = problem("two cameras a warp (N = 45)", torch.float32, cuda_device)
+    pcg = ba.GraphedPCG(30)
+    for lam, shift in ((1e-3, 0.0), (4e-2, 0.05)):
+        p = prob._replace(points=prob.points + shift, poses=lie.se3_retract(
+            prob.poses, torch.full_like(prob.poses[:, :6], shift)))
+        Hcc_d, bc, Hpp_inv, bp, Wcp, _ = ba._build_system(
+            p, 5.991, torch.tensor(lam, device=cuda_device))
+        cp = ba.coupling(p, Wcp, Hpp_inv)
+        g = ba._schur_rhs(cp, bp, bc)
+        got = pcg(cp, Hcc_d, g).clone()
+        close(got, eager_dc(cp, Hcc_d, g, 30), 1e-4)
+    pcg.close()
+    torch.cuda.synchronize()
+    before = (torch.cuda.memory_allocated(cuda_device), dict(ck.LAUNCHES))
+    out, cost = ba.ba_solve(prob, n_iters=3, cg_iters=30)
+    assert bool(torch.isfinite(cost))
+    del out, cost
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(cuda_device) == before[0]
+    assert ck.LAUNCHES["ba_schur_sweep"] - before[1]["ba_schur_sweep"] == 3 * (2 * 30 + 2)

@@ -16,6 +16,7 @@ from orbslam2_with_quadrics_tpu_torch.models import local_mapping as lm
 from orbslam2_with_quadrics_tpu_torch.models import map_state as ms
 from orbslam2_with_quadrics_tpu_torch.ops import ba, lie
 from orbslam2_with_quadrics_tpu_torch.utils import tracing
+from test_torch_schur_sweep import pcg_graph_stand_in  # noqa: F401  (a fixture)
 
 K_SLOTS, N_FEAT, P_SLOTS = 8, 48, 96
 CAM = torch.tensor([400.0, 400.0, 160.0, 120.0])
@@ -132,7 +133,7 @@ def test_global_ba_span_tree(traced_solve):
         kids = sorted((s for s in spans if s["parent"] == st["id"]), key=lambda s: s["id"])
         assert [k["name"] for k in kids] == ["ba.system", "ba.pcg", "ba.update"]
         assert ids[st["parent"]]["name"] == "ba.solve"
-        assert by_name(kids, "ba.pcg")[0]["counts"] == {"iters": 40}
+        assert by_name(kids, "ba.pcg")[0]["counts"] == {"iters": 40, "graphed": 0}
         # the three children cover the step, one after another, inside it
         bounds = [st["start_ns"]] + [t for k in kids for t in (k["start_ns"], k["end_ns"])] \
             + [st["end_ns"]]
@@ -164,6 +165,23 @@ def test_global_ba_counts(traced_solve):
     prob, _ = ba.ba_solve(prob, n_iters=5, cg_iters=40, use_huber=True)
     _, inl = ba.edge_chi2(prob)
     assert purged == int((prob.valid > 0).sum() - ((prob.valid > 0) & inl).sum()) > 0
+
+
+@pytest.mark.parametrize("graphed", [0, 1])
+def test_pcg_span_says_which_route_ran(graphed, request):
+    """``ba.pcg``'s ``graphed`` count: 0 on the eager PCG (the CPU), 1 where
+    the step replayed its solve's graph (the card's route, here with the
+    graph's eager stand-in: one capture a ``ba_solve`` call); the answer is
+    the same either way."""
+    m, Kc, tab = small_map()
+    want = solve(m, Kc, tab)
+    made = request.getfixturevalue("pcg_graph_stand_in") if graphed else []
+    with tracing.collect() as spans:
+        got = solve(m, Kc, tab)
+    assert [s["counts"] for s in by_name(spans, "ba.pcg")] == [
+        {"iters": 40, "graphed": graphed}] * 15
+    assert len(made) == 2 * graphed
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_spans_lie_on_the_profilers_events():
@@ -298,6 +316,7 @@ def test_device_spans_on_a_side_stream_and_thread(cuda_device):
         assert not t.is_alive()
     assert len(spans) == 65
     assert all(s["device_ms"] is not None and s["device_ms"] > 0 for s in spans)
+    assert [s["counts"]["graphed"] for s in by_name(spans, "ba.pcg")] == [1] * 15
     root = by_name(spans, "gba.solve")[0]
     steps = by_name(spans, "ba.step")
     assert sum(s["device_ms"] for s in steps) < root["device_ms"]
